@@ -5,13 +5,11 @@ subset ``build_clip_inference`` runs with ``bug_parity=False``,
 The recurrent state is the SR frame in space-to-depth layout
 ``(B, H, W, 48)`` bf16, channel ``c*16 + a*4 + b``: conv_out writes it
 directly (the ``conv_out_s2d`` CUDA kernel) and the next frame's warp
-reads it.  This ports what the JAX functions compute, not their TPU
-layouts: the warp is ``F.grid_sample`` of the unpacked carry in float32
-on the pseudo-flow grid (no packed-int8 table, no planar coordinate
-matrices), and the first layer is one conv over
-``[lr || pixel_unshuffle(deprocess(warped))]`` (no identity-s2d conv).
-The JAX warp reads a uint8-quantized carry; this one does not, which
-moves each tap by at most 1/510.
+reads it (the ``warp_s2d`` CUDA kernel), which returns the 48 feedback
+channels ``conv_in`` reads after the LR frame.  This ports what the JAX
+functions compute, not their TPU layouts: there is no packed u8 table,
+no planar coordinate matrices and no identity-s2d conv.  As in the JAX
+route, the warp reads the carry quantized to the u8 grid.
 """
 
 from __future__ import annotations
@@ -22,10 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models import Generator
-from ..ops.image import deprocess
 from ..ops.kernels.conv_out_s2d import conv_out_s2d_cuda, conv_out_s2d_reference
+from ..ops.kernels.warp_s2d import warp_s2d_feedback_cuda, warp_s2d_feedback_reference
 from ..ops.space import depth_to_space
-from ..ops.warp import grid_sample, pseudo_flow_nchw
 
 
 def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
@@ -39,6 +36,18 @@ def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
     if feat_hr.device.type == "cpu":
         return conv_out_s2d_reference(feat_hr, kernel, bias).to(torch.bfloat16)
     return conv_out_s2d_cuda(feat_hr, kernel, bias)
+
+
+def warp_s2d_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tensor:
+    """The bf16 s2d carry (B, H, W, 48) warped by the pseudo-flow of
+    ``prev_lr`` (B, H, W, 3) -> the feedback ``deprocess(warp(u8(carry)))``
+    as (B, H, W, 48) bf16 in the carry's channel order.
+
+    A CPU tensor takes the plain version; any other tensor takes the CUDA
+    kernel, which raises on what it does not take."""
+    if carry.device.type == "cpu":
+        return warp_s2d_feedback_reference(carry, prev_lr).to(torch.bfloat16)
+    return warp_s2d_feedback_cuda(carry, prev_lr.contiguous())
 
 
 def s2d_to_frame(s2d: torch.Tensor) -> torch.Tensor:
@@ -55,13 +64,12 @@ def conv_out_params(model: Generator) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def fused_first_layer(model: Generator, cur_lr: torch.Tensor,
-                      warped_hr: torch.Tensor) -> torch.Tensor:
-    """relu(conv_in([lr || s2d(deprocess(warped))])): cur_lr (B, H, W, 3),
-    warped_hr (B, 4H, 4W, 3) -> (B, H, W, 64), all NHWC."""
+                      feedback: torch.Tensor) -> torch.Tensor:
+    """relu(conv_in([lr || feedback])): cur_lr (B, H, W, 3), the warp's
+    feedback (B, H, W, 48) -> (B, H, W, 64), all NHWC."""
     dt = model.dtype
-    fb = F.pixel_unshuffle(deprocess(warped_hr.permute(0, 3, 1, 2)), 4)
-    inp = torch.cat([cur_lr.permute(0, 3, 1, 2).to(dt), fb.to(dt)], dim=1)
-    return F.relu(model.conv_in(inp)).permute(0, 2, 3, 1)
+    inp = torch.cat([cur_lr.to(dt), feedback.to(dt)], dim=-1)
+    return F.relu(model.conv_in(inp.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
 
 
 def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor) -> torch.Tensor:
@@ -76,8 +84,6 @@ def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor) -> torch.Tensor:
 def fused_sr_step_s2d(model: Generator, carry_s2d: torch.Tensor,
                       prev_lr: torch.Tensor, cur_lr: torch.Tensor) -> torch.Tensor:
     """One recurrent step, s2d carry in -> s2d carry out (NHWC)."""
-    grid = pseudo_flow_nchw(prev_lr.permute(0, 3, 1, 2))
-    warped = grid_sample(s2d_to_frame(carry_s2d).float(), grid)
-    net = fused_first_layer(model, cur_lr, warped)
+    net = fused_first_layer(model, cur_lr, warp_s2d_feedback(carry_s2d, prev_lr))
     feat = model.tail_features(net)
     return conv_out_s2d(feat, *conv_out_params(model))

@@ -14,17 +14,31 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tecogan_tpu.config import TecoConfig
-
+from ..config import TecoConfig
 from ..models import Generator
 
 
-def model_defs(cfg: TecoConfig) -> Generator:
-    """The generator for ``cfg`` (compute dtype from ``cfg.precision``).
-    The JAX function also returns the discriminator, which belongs to
-    training and is not ported yet."""
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card.  Raises
+    when the caller asked for no device and no GPU is visible: nothing
+    falls back to the CPU unless the caller names it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is visible; pass device='cpu' to "
+                           "run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def model_defs(cfg: TecoConfig, device=None) -> Generator:
+    """The generator for ``cfg`` (compute dtype from ``cfg.precision``) on
+    ``device`` (default: the card, see :func:`resolve_device`).  The JAX
+    function also returns the discriminator, which belongs to training
+    and is not ported yet."""
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-    return Generator(num_resblock=cfg.num_resblock, out_channels=3, dtype=dtype)
+    dev = resolve_device(device)
+    return Generator(num_resblock=cfg.num_resblock, out_channels=3,
+                     dtype=dtype).to(dev)
 
 
 def _conv_params(gen: torch.Generator, in_ch: int, out_ch: int,

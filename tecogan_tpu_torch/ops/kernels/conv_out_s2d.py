@@ -4,9 +4,8 @@ plain PyTorch version.
 Replaces the TPU Pallas kernels ``conv_out_s2d_pallas_paired`` and
 ``conv_out_s2d_pallas`` (tecogan_tpu/ops/pallas/conv_out_s2d.py).  The
 kernel source is ``tecogan_tpu_torch/csrc/conv_out_s2d.cu``; its header
-says what bounds it and how it is laid out.  It is compiled with ``nvcc``
-for ``sm_90a`` at first use into ``build/`` at the checkout's root (never
-at import), and bound through a plain C entry point with ``ctypes``.
+says what bounds it and how it is laid out.  ``_build.load`` compiles it
+at first use; its plain C entry points are bound with ``ctypes``.
 
 Contract: ``feat`` ``(B, 4H, 4W, 64)`` bf16 contiguous NHWC, ``kernel``
 ``(3, 3, 64, 3)`` f32 HWIO, ``bias`` ``(3,)`` f32 -> ``(B, H, W, 48)``
@@ -16,20 +15,13 @@ bf16 with channel ``c*16 + a*4 + b`` holding sigmoid(conv)[4i+a, 4j+b, c].
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "conv_out_s2d.cu"
-BUILD_DIR = _PKG.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from ._build import CSRC, load
+
+SOURCE = CSRC / "conv_out_s2d.cu"
 
 # Kernel launches; only the CUDA wrapper adds to it, callers reset it to 0.
 launch_count = 0
@@ -48,14 +40,6 @@ def conv_out_s2d_reference(feat: torch.Tensor, kernel: torch.Tensor,
     return F.pixel_unshuffle(y, 4).permute(0, 2, 3, 1)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
 def build() -> str:
     """Compile (unless this source's library is already in ``build/``) and
     load the kernel's library.  Returns the compiler's log ('' when the
@@ -63,20 +47,7 @@ def build() -> str:
     global _lib
     if _lib is not None:
         return ""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"conv_out_s2d-{digest}.so"
-    log = ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, log = load(SOURCE)
     lib.conv_out_s2d_init.argtypes = []
     lib.conv_out_s2d_init.restype = ctypes.c_int
     fn = lib.conv_out_s2d_launch

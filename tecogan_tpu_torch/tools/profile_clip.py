@@ -10,9 +10,11 @@ seed 0) on a (1, 8, 270, 480, 3) clip it measures:
 * one clip under ``torch.profiler``: summed kernel time (device busy
   share of the untraced median clip time) and kernel time by name;
 * one recurrent frame step split into its layers with CUDA events, each
-  the mean of 10 launches: pseudo-flow grid + warp, first layer,
-  trunk (``tail_features``, cuDNN), the ``conv_out_s2d`` kernel, the
-  whole step, and the clip's closing s2d -> frame assembly.
+  the mean of 10 launches: the ``warp_s2d`` kernel (pseudo-flow, u8
+  sample, deprocess and s2d pack in one), the first layer (``conv_in``
+  over [lr || feedback]), the trunk (``tail_features``, cuDNN), the
+  ``conv_out_s2d`` kernel, the whole step, and the clip's closing
+  s2d -> frame assembly.
 
 Fails without a GPU; prints one line a measurement and writes them all as
 JSON to ``--out``.
@@ -29,13 +31,12 @@ import time
 import numpy as np
 import torch
 
-from tecogan_tpu.config import TecoConfig
-
+from ..config import TecoConfig
 from ..engine.fused import (conv_out_params, conv_out_s2d, fused_first_frame_s2d,
-                            fused_first_layer, fused_sr_step_s2d, s2d_to_frame)
+                            fused_first_layer, fused_sr_step_s2d, s2d_to_frame,
+                            warp_s2d_feedback)
 from ..engine.inference import build_clip_inference
 from ..engine.state import init_generator, model_defs
-from ..ops.warp import grid_sample, pseudo_flow_nchw
 from ..utils.convert import generator_state_dict_from_jax
 from ..utils.flops import H100_PEAK_BF16_FLOPS, generator_macs_per_frame
 from ..utils.timing import card, events_ms
@@ -57,7 +58,7 @@ def main(argv=None) -> dict:
 
     cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False,
                      use_pallas=True)
-    model = model_defs(cfg).to(dev)
+    model = model_defs(cfg, device=dev)
     model.load_state_dict(generator_state_dict_from_jax(
         init_generator(cfg, torch.Generator().manual_seed(SEED))))
     model.eval()
@@ -118,19 +119,14 @@ def main(argv=None) -> dict:
     with torch.inference_mode():
         prev_lr, cur_lr = clip[:, 0], clip[:, 1]
         carry = fused_first_frame_s2d(model, prev_lr)
-
-        def warp():
-            grid = pseudo_flow_nchw(prev_lr.permute(0, 3, 1, 2))
-            return grid_sample(s2d_to_frame(carry).float(), grid)
-
-        warped = warp()
-        net = fused_first_layer(model, cur_lr, warped)
+        feedback = warp_s2d_feedback(carry, prev_lr)
+        net = fused_first_layer(model, cur_lr, feedback)
         feat = model.tail_features(net)
         w_out = conv_out_params(model)
         stack = torch.stack([carry] * FRAMES, dim=1)
         layers = {
-            "warp": warp,
-            "first_layer": lambda: fused_first_layer(model, cur_lr, warped),
+            "warp": lambda: warp_s2d_feedback(carry, prev_lr),
+            "first_layer": lambda: fused_first_layer(model, cur_lr, feedback),
             "trunk": lambda: model.tail_features(net),
             "conv_out_s2d": lambda: conv_out_s2d(feat, *w_out),
             "step": lambda: fused_sr_step_s2d(model, carry, prev_lr, cur_lr),

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from tecogan_tpu.config import TecoConfig
 from tecogan_tpu.models.generator import Generator as JaxGenerator
+from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.engine.state import init_generator, model_defs
 from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
 
@@ -31,7 +31,7 @@ def _flax_params(seed=0):
 
 
 def _port(params):
-    model = model_defs(CFG)
+    model = model_defs(CFG, device="cpu")
     model.load_state_dict(generator_state_dict_from_jax(params))
     return model.eval()
 
@@ -68,7 +68,7 @@ def test_bridge_matches_the_torch_exporter():
     for key, t in sd.items():
         mod, leaf = key.rsplit(".", 1)
         torch.testing.assert_close(t, ref[f"{names[mod]}.{leaf}"], rtol=0, atol=0)
-    model = model_defs(CFG)
+    model = model_defs(CFG, device="cpu")
     model.load_state_dict(sd)  # strict: every key and shape matches
 
 

@@ -13,17 +13,25 @@ into ``build_clip_inference``, ``build_chunked_inference`` and
    versions;
 2. the kernels' build time;
 3. the ``conv_out_s2d`` kernel against its plain PyTorch version (fp32,
-   TF32 off) on the same bf16 inputs at three shapes; at the main path's
-   shape its time beside the plain version's, the bf16 library chain's
-   (``F.conv2d`` + sigmoid + ``pixel_unshuffle``) and its bound;
+   TF32 off) on the same bf16 inputs and the bf16-rounded weights the
+   kernel computes with, at three shapes; at the main path's shape its
+   device time (a CUDA graph of back-to-back launches; the wrapper's
+   back-to-back time beside it) against its bound, the plain version's
+   time and the bf16 library chain's (``F.conv2d`` + sigmoid +
+   ``pixel_unshuffle``);
 4. the full-width generator (16 resblocks, bf16) on a (1, 8, 270, 480, 3)
    clip: output shape, range, both kernels' launch counts, fps, TFLOP/s
    and MFU against the H100's dense bf16 peak;
 5. the fused route with the kernels (bf16) against the exact route (fp32)
-   on the same weights at a small width: last-frame PSNR;
+   on the same weights at a small width: last-frame PSNR above the bar.
+   As in the port's tests, the conv kernels are scaled by 2.5 and the LR
+   clip drawn in [0, 0.3], so that the output depends on the warp; a
+   control, the same route with the warp's feedback replaced by zeros,
+   must score below the bar, or the phase could not see the warp;
 6. the ``warp_s2d`` kernel against its plain version (fp32) on the same
-   bf16 carry at three shapes; at the main shape its time beside the
-   plain version's, ``F.grid_sample``'s alone and its bound;
+   bf16 carry at three shapes; at the main shape its device time (as in
+   3) against its bound, the plain version's time and
+   ``F.grid_sample``'s alone;
 7. chunked inference at full width: a uint8 clip of 40 frames in windows
    of 16 with ``out_u8`` and a sink, bit-equal to the one-shot clip; peak
    device memory at 80 frames against 40; fps;
@@ -63,6 +71,8 @@ WARP_MAX_ERR, WARP_MEAN_ERR = 4e-3, 1e-3
 CLIP = (1, 8, 270, 480, 3)
 SMALL_CLIP = (1, 6, 16, 24, 3)
 PSNR_BAR_DB = 40.0
+# phase 5: conv kernels scaled and LR clip range, as tests/test_torch_port_cuda.py
+KERNEL_GAIN, CLIP_RANGE = 2.5, 0.3
 CHUNK_T, CHUNK, LONG_T = 40, 16, 80
 STREAM_T = 16
 FRAME_BUDGET_MS = 1e3 / 30           # a 30 fps live stream
@@ -124,6 +134,9 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.fused import (
+        conv_out_params, conv_out_s2d, fused_first_frame_s2d, fused_first_layer,
+        s2d_to_frame)
     from tecogan_tpu_torch.engine.inference import (
         build_chunked_inference, build_clip_inference, build_stream_inference)
     from tecogan_tpu_torch.engine.state import init_generator, model_defs
@@ -135,7 +148,7 @@ def main() -> None:
     from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
     from tecogan_tpu_torch.utils.flops import (H100_PEAK_BF16_FLOPS,
                                                generator_macs_per_frame)
-    from tecogan_tpu_torch.utils.timing import card, events_ms
+    from tecogan_tpu_torch.utils.timing import card, events_ms, graph_ms
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -172,7 +185,8 @@ def main() -> None:
     for shape in FEAT_SHAPES:
         feat = torch.rand(shape, generator=gen, device=dev).bfloat16()
         feat32 = feat.float()
-        ref = kmod.conv_out_s2d_reference(feat32, weight, bias)
+        # the kernel rounds its weights to bf16, as the JAX route does
+        ref = kmod.conv_out_s2d_reference(feat32, weight.bfloat16().float(), bias)
         got = kmod.conv_out_s2d_cuda(feat, weight, bias)
         torch.cuda.synchronize()
         require(tuple(got.shape) == tuple(ref.shape),
@@ -182,7 +196,8 @@ def main() -> None:
         conv["max_abs_err"] = max(conv["max_abs_err"], mx)
         line = f"[3] conv_out_s2d {shape}: max_abs {mx:.3e} mean_abs {mean:.3e}"
         if shape == FEAT_SHAPES[0]:
-            conv["ms"] = events_ms(lambda: kmod.conv_out_s2d_cuda(feat, weight, bias), 50)
+            conv["ms"] = graph_ms(lambda: kmod.conv_out_s2d_cuda(feat, weight, bias), 50)
+            wrapper_ms = events_ms(lambda: kmod.conv_out_s2d_cuda(feat, weight, bias), 50)
             conv["plain_ms"] = events_ms(
                 lambda: kmod.conv_out_s2d_reference(feat32, weight, bias), 50)
             conv["library_ms"] = events_ms(
@@ -190,7 +205,8 @@ def main() -> None:
             conv["bound_ms"], conv["bound_by"] = bound(
                 (feat.numel() + got.numel()) * 2, 2.0 * got.numel() * 9 * 64,
                 PEAK_BF16_FLOPS)
-            line += (f" | kernel {conv['ms']:.4f} ms, bound {conv['bound_ms']:.4f} ms"
+            line += (f" | kernel {conv['ms']:.4f} ms (graph; wrapper back to back"
+                     f" {wrapper_ms:.4f} ms), bound {conv['bound_ms']:.4f} ms"
                      f" ({conv['bound_by']}; {conv['bound_ms'] / conv['ms']:.1%})"
                      f" | plain fp32 {conv['plain_ms']:.4f} ms | library chain bf16"
                      f" {conv['library_ms']:.4f} ms | {smi}")
@@ -233,23 +249,35 @@ def main() -> None:
           flush=True)
     del out, clip
 
-    # -- 5. fused (kernels, bf16) vs exact (fp32) on the same weights
+    # -- 5. fused (kernels, bf16) vs exact (fp32) on the same scaled weights,
+    #       and the same fused route with zero feedback as the control
     small = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False,
                        use_pallas=True)
     exact_cfg = small.replace(precision="fp32", use_pallas=False)
     sd = generator_state_dict_from_jax(
         init_generator(small, torch.Generator().manual_seed(1)))
+    sd = {k: v * KERNEL_GAIN if k.endswith("weight") else v for k, v in sd.items()}
     fast_model = model_defs(small, device=dev)
     fast_model.load_state_dict(sd)
     exact_model = model_defs(exact_cfg, device=dev)
     exact_model.load_state_dict(sd)
-    small_clip = torch.from_numpy(rng.random(SMALL_CLIP, np.float32)).to(dev)
+    small_clip = torch.from_numpy(
+        rng.random(SMALL_CLIP, np.float32) * np.float32(CLIP_RANGE)).to(dev)
     fast = build_clip_inference(small)(fast_model.eval(), small_clip)
     exact = build_clip_inference(exact_cfg)(exact_model.eval(), small_clip)
     db = psnr(fast[:, -1], exact[:, -1])
+    with torch.no_grad():
+        carry = fused_first_frame_s2d(fast_model, small_clip[:, 0])
+        for t in range(1, SMALL_CLIP[1]):
+            net = fused_first_layer(fast_model, small_clip[:, t], torch.zeros_like(carry))
+            carry = conv_out_s2d(fast_model.tail_features(net), *conv_out_params(fast_model))
+        db_control = psnr(s2d_to_frame(carry).float(), exact[:, -1])
     print(f"[5] fused bf16 (kernels) vs exact fp32, last of {SMALL_CLIP[1]} "
-          f"frames: {db:.2f} dB PSNR", flush=True)
+          f"frames: {db:.2f} dB PSNR; control with zero feedback {db_control:.2f} dB "
+          f"(bar {PSNR_BAR_DB} dB)", flush=True)
     require(db > PSNR_BAR_DB, f"fused vs exact PSNR {db:.2f} dB")
+    require(db_control < PSNR_BAR_DB,
+            f"zero-feedback control scores {db_control:.2f} dB: the phase cannot see the warp")
 
     # -- 6. warp_s2d against its plain version
     warp = {"name": "warp_s2d", "route": "cuda",
@@ -270,7 +298,8 @@ def main() -> None:
         line = (f"[6] warp_s2d {(B, H, W)} prev_lr in [{lo}, {hi}]: max_abs "
                 f"{mx:.3e} mean_abs {mean:.3e}")
         if (B, H, W) == WARP_SHAPES[0][0]:
-            warp["ms"] = events_ms(lambda: wmod.warp_s2d_feedback_cuda(carry, prev_lr), 50)
+            warp["ms"] = graph_ms(lambda: wmod.warp_s2d_feedback_cuda(carry, prev_lr), 50)
+            wrapper_ms = events_ms(lambda: wmod.warp_s2d_feedback_cuda(carry, prev_lr), 50)
             warp["plain_ms"] = events_ms(
                 lambda: wmod.warp_s2d_feedback_reference(carry, prev_lr), 50)
             q = torch.round(carry.float() * 255).clamp(0, 255) * (1 / 255)
@@ -282,7 +311,8 @@ def main() -> None:
             bytes_moved, ops, inside = warp_work(carry, prev_lr)
             warp["bound_ms"], warp["bound_by"] = bound(bytes_moved, ops, PEAK_F32_FLOPS)
             full_ms = (carry.numel() * 2 * 2 + prev_lr.numel() * 4) / HBM_BYTES_PER_S * 1e3
-            line += (f" | kernel {warp['ms']:.4f} ms, bound {warp['bound_ms']:.4f} ms"
+            line += (f" | kernel {warp['ms']:.4f} ms (graph; wrapper back to back"
+                     f" {wrapper_ms:.4f} ms), bound {warp['bound_ms']:.4f} ms"
                      f" ({warp['bound_by']}, {bytes_moved / 1e6:.2f} MB, "
                      f"{inside:.1%} of taps inside; {warp['bound_ms'] / warp['ms']:.1%})"
                      f", {full_ms / warp['ms']:.1%} of the {full_ms:.4f} ms floor of"

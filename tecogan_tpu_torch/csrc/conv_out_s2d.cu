@@ -6,32 +6,51 @@
 //
 // Contract (NHWC):
 //   feat  (B, 4H, 4W, 64) bf16, contiguous
-//   w     (3, 3, 64, 3)   f32 HWIO, contiguous
+//   w     (3, 3, 64, 3)   f32 HWIO, contiguous; rounded to bf16 (to
+//                         nearest) on load, as the JAX route casts it
 //   bias  (3,)            f32
 //   out   (B, H, W, 48)   bf16
 //   out[b, i, j, c*16 + a*4 + bb] = sigmoid(bias[c] +
-//       sum_{u,v,k} feat[b, 4i+a+u-1, 4j+bb+v-1, k] * w[u, v, k, c])
+//       sum_{u,v,k} feat[b, 4i+a+u-1, 4j+bb+v-1, k] * bf16(w[u, v, k, c]))
 // with zero padding outside the image and f32 accumulation.  The
 // 3-channel HR frame is never stored: each result goes straight to its
 // space-to-depth slot.
 //
-// What bounds it: at 1080p the kernel must read 265 MB of bf16 features
-// per frame (~80 us at 3.35 TB/s) and do 7.2 GFLOP.  With each feature
-// read from device memory once it is bytes-bound on the tensor cores, but
-// this first version runs the 3-wide dot products on the CUDA cores
-// (~3.6 G f32 FMA per frame, about as long as the bytes take).
+// What bounds it: at 1080p the kernel must read the 265.4 MB of bf16
+// features and write the 12.4 MB result, 277.8 MB: 0.083 ms at 3.35 TB/s.
+// The tensor-core work of the tiling below is 9.3 GFLOP (2.3 M m16n8k16
+// products, padding included), ~0.015 ms even at mma.sync rates, so it is
+// bytes-bound once each feature is fetched once and the loads overlap the
+// compute.
 //
-// Design: one block covers TR LR rows x TC LR columns.  It stages the
-// (4*TR + 2) x (4*TC + 2) HR pixels it needs (1-pixel halos, zero-filled
-// outside the image by cp.async's src-size operand) and the 6.9 KB of f32
-// weights in shared memory.  Each thread owns one (LR row, LR column,
-// sub-row a): 4 HR pixels x 3 channels, which it writes as three 8-byte
-// stores into the s2d slots; the four threads of one LR pixel write its
-// 96 bytes together.  Pixels are padded to 144 bytes and rows to 4 words
-// past a multiple of 32 words, so the 16-byte feature reads of each
-// quarter-warp (4 sub-rows x 2 columns) hit 32 distinct banks; the weight
-// reads are warp-wide broadcasts.  Making it fast (TMA, wgmma with N=48)
-// is later work.
+// Formulation (the JAX kernel's shift-after-the-dot): for each staged HR
+// input row r and row tap u, Z_u[p, n] = sum_k F[r, p, k] * W[u, v, k, c]
+// with n = 3v + c is a bf16 m16n8k16 product per 16 pixels and 16
+// channels, added into the f32 accumulator of output row r - u + 1.
+// Columns n < 8 have one 8-column tile per row tap; the ninth, (v 2, c 2),
+// of all three taps shares a fourth tile, so a 16x16 A tile feeds 4 MMAs.
+// Three accumulators roll down the band; output row o is complete once
+// row o + 1 is in.  Its result is then y[x, c] = sum_v Z[x + v - 1, 3v + c]:
+// the column shift acts on the small sums, through shared memory.  Each
+// staged feature is read from shared memory once (one ldmatrix.x4 per
+// 16x16 A tile).  The B fragments (32 registers) are built once per block
+// from the f32 weights, rounded to bf16.
+//
+// Tiling: a block of 8 warps owns a strip of TC = 30 LR columns (120 HR
+// columns plus a 1-pixel halo on each side: 122 staged pixels in 8 M
+// tiles of 16, one a warp) and a band of BH = 17 LR rows (68 HR rows plus
+// a halo row above and below).  It walks down the band with a ring of
+// STAGES = 3 HR rows in shared memory, filled by cp.async (zero-fill
+// outside the image gives the SAME padding), two rows in flight while the
+// MMAs run on the third; one barrier a row.  Pixels are padded to 144
+// bytes so that the 8 row addresses of each ldmatrix phase hit distinct
+// banks.  Each finished HR row's sigmoid values go to the LR row's s2d
+// records in shared memory; after sub-row a = 3 the strip's records are
+// stored as one contiguous run in 16-byte writes.  At 1080p the grid is
+// 16 strips x 16 bands = 256 blocks, one wave at 2 blocks an SM (70,272
+// bytes of shared memory and 128 registers a thread); halos re-read 1.56%
+// of the columns and 2.78% of the rows, so the features are fetched 1.044
+// times (277.0 MB): with the 12.4 MB written, 0.0864 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,30 +60,58 @@ namespace {
 
 constexpr int K = 64;                    // feature channels
 constexpr int C = 3;                     // output channels
-constexpr int TR = 2;                    // LR rows per block
-constexpr int TC = 16;                   // LR columns per block
-constexpr int THREADS = TR * TC * 4;     // one thread per (row, col, a)
-constexpr int SH = 4 * TR + 2;           // staged HR rows
-constexpr int SW = 4 * TC + 2;           // staged HR columns
+constexpr int TC = 30;                   // LR columns per strip
+constexpr int BH = 17;                   // LR rows per band
+constexpr int SW = 4 * TC + 2;           // staged HR pixels per row
+constexpr int MT = (SW + 15) / 16;       // M tiles of 16 pixels, one a warp
+constexpr int MROWS = 16 * MT;           // pixel slots per ring row
+constexpr int THREADS = 32 * MT;
+constexpr int STAGES = 3;                // ring rows
 constexpr int CHUNKS = K / 8;            // 16-byte chunks per pixel
-constexpr int PIX_WORDS = (K + 8) / 2;   // 144-byte padded pixel, in words
-constexpr int ROW_WORDS = ((SW * PIX_WORDS + 27) / 32) * 32 + 4;  // = 4 mod 32
-constexpr int W_FLOATS = 9 * K * C;
-constexpr int W_BYTES = W_FLOATS * 4;
-constexpr int SMEM_BYTES = W_BYTES + SH * ROW_WORDS * 4;
+constexpr int PIX_BYTES = 2 * K + 16;    // 144: 36 words, 4 mod 32
+constexpr int ROW_BYTES = MROWS * PIX_BYTES;
+constexpr int RING_BYTES = STAGES * ROW_BYTES;
+constexpr int ZS = 9;                    // floats per pixel of Z: n = 3v + c
+constexpr int ZS_BYTES = MROWS * ZS * 4;
+constexpr int REC = 16 * C;              // s2d channels of one LR pixel
+constexpr int REC_BYTES = TC * REC * 2;
+constexpr int SMEM_BYTES = RING_BYTES + 2 * ZS_BYTES + 2 * REC_BYTES;
 
-static_assert(W_BYTES % 16 == 0, "feature tile must stay 16-byte aligned");
-static_assert(ROW_WORDS % 4 == 0 && ROW_WORDS >= SW * PIX_WORDS, "row pad");
+static_assert(THREADS % CHUNKS == 0 && MROWS * CHUNKS % THREADS == 0,
+              "whole copies per thread, one chunk index a thread");
+static_assert(ZS_BYTES % 16 == 0 && RING_BYTES % 16 == 0, "alignment");
+static_assert(REC * 2 % 16 == 0, "LR records must be whole 16-byte pieces");
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
+__device__ __forceinline__ void cp_async16(uint32_t smem_dst, const void* gmem_src,
                                            int src_bytes) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem_src), "r"(src_bytes));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_dst),
+               "l"(gmem_src), "r"(src_bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a * b: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -72,108 +119,197 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(THREADS)
+struct Band {
+  const __nv_bfloat16* img;  // this image's features
+  __nv_bfloat16* out;
+  int H, W, b, i0, j0, nb, NR;
+  uint32_t ring;             // shared address of the ring
+  unsigned char* smem;
+};
+
+// Issue the copies of band input row t (HR row 4*i0 - 1 + t) into its
+// ring slot; pixels outside the image and slots past the strip are
+// zero-filled without reading memory.  THREADS is a multiple of CHUNKS,
+// so a thread copies the same 16-byte chunk of every pixel it copies.
+__device__ __forceinline__ void stage_row(const Band& s, int t) {
+  const int r = 4 * s.i0 - 1 + t;
+  const int W4 = 4 * s.W;
+  const bool row_in = r >= 0 && r < 4 * s.H;
+  const int q0 = threadIdx.x / CHUNKS, ch = threadIdx.x % CHUNKS;
+  const __nv_bfloat16* row = s.img + (size_t)(row_in ? r : 0) * W4 * K + ch * 8;
+  const uint32_t dst = s.ring + (t % STAGES) * ROW_BYTES + ch * 16;
+#pragma unroll
+  for (int k = 0; k < MROWS * CHUNKS / THREADS; ++k) {
+    const int q = q0 + k * (THREADS / CHUNKS);
+    const int x = 4 * s.j0 - 1 + q;
+    const bool in = row_in && q < SW && x >= 0 && x < W4;
+    cp_async16(dst + q * PIX_BYTES, in ? row + (size_t)x * K : s.img, in ? 16 : 0);
+  }
+}
+
+// Output row e of the band (HR row 4*i0 + e): the column shift on its
+// sums in zs, bias and sigmoid, into slot e % 4 of the s2d records of its
+// LR row; one (channel, HR column) a task, spread over the block.
+__device__ __forceinline__ void epilogue(const Band& s, int e, const float* zs,
+                                         const float (&bias)[C]) {
+  __nv_bfloat16* rec = reinterpret_cast<__nv_bfloat16*>(s.smem + RING_BYTES + 2 * ZS_BYTES) +
+                       ((e >> 2) & 1) * TC * REC;
+  for (int task = threadIdx.x; task < C * 4 * TC; task += THREADS) {
+    const int c = task / (4 * TC);
+    const int xl = task % (4 * TC);  // HR column 4*j0 + xl, staged at slot xl + 1
+    const float* z = zs + xl * ZS + c;
+    const float y = (c == 0 ? bias[0] : c == 1 ? bias[1] : bias[2]) + z[0] + z[ZS + 3] +
+                    z[2 * ZS + 6];
+    rec[(xl >> 2) * REC + c * 16 + (e & 3) * 4 + (xl & 3)] =
+        __float2bfloat16_rn(__fdividef(1.f, 1.f + __expf(-y)));
+  }
+}
+
+// Store the strip's records of band LR row li as one contiguous run.
+__device__ __forceinline__ void store_row(const Band& s, int li) {
+  const uint4* src = reinterpret_cast<const uint4*>(s.smem + RING_BYTES + 2 * ZS_BYTES) +
+                     (li & 1) * (TC * REC * 2 / 16);
+  uint4* dst = reinterpret_cast<uint4*>(
+      s.out + (((size_t)s.b * s.H + s.i0 + li) * s.W + s.j0) * REC);
+  const int n = min(TC, s.W - s.j0) * (REC * 2 / 16);
+  for (int e = threadIdx.x; e < n; e += THREADS) dst[e] = src[e];
+}
+
+// A warp's registers: the B fragments (k rows 2*cq, 2*cq + 1 and +8,
+// column g of each 8-column tile) and the f32 accumulators of its 16
+// pixels.  Tile u (one a row tap) holds columns n = 3v + c < 8; the last
+// column, (v 2, c 2), of all three row taps shares tile D (column u), so
+// a 16x16 A tile feeds 4 MMAs and no fragment is mostly padding.
+struct Warp {
+  uint32_t bw[3][K / 16][2];
+  uint32_t bd[K / 16][2];
+  float acc[3][4];  // acc[o % 3]: columns 0..7 of output row o
+  float r8[3][2];   // r8[o % 3]: column 8 of output row o, pixel rows g, g+8
+  float bias[C];
+};
+
+// One band input row t, with P = t % 3 known at compile time so that the
+// rolling accumulators stay in registers.  One barrier a row: the sums of
+// the row finished at step t - 1 (in zs, two buffers) go through the
+// epilogue at step t, and an LR row's records (two buffers) are stored at
+// the step after its last sub-row.
+template <int P>
+__device__ __forceinline__ void band_row(const Band& s, int t, Warp& r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* zs = reinterpret_cast<float*>(s.smem + RING_BYTES);
+  cp_async_wait<STAGES - 2>();  // row t has landed (this thread's copies)
+  __syncthreads();              // ... everyone's; row t - 1's slot is free
+  if (t + STAGES - 1 < s.NR) stage_row(s, t + STAGES - 1);
+  cp_async_commit();
+  if (t >= 4 && ((t - 4) & 3) == 3) store_row(s, (t - 4) >> 2);
+  if (t >= 3) epilogue(s, t - 3, zs + ((t - 1) & 1) * (MROWS * ZS), r.bias);
+
+  const uint32_t a_base = s.ring + (t % STAGES) * ROW_BYTES +
+                          (16 * warp + (lane & 15)) * PIX_BYTES + (lane >> 4) * 16;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kt = 0; kt < K / 16; ++kt) {
+    uint32_t a[4];
+    ldmatrix_x4(a_base + kt * 32, a);
+#pragma unroll
+    for (int u = 0; u < 3; ++u) mma_bf16(r.acc[(P - u + 3) % 3], a, r.bw[u][kt]);
+    mma_bf16(d, a, r.bd[kt]);
+  }
+  // tile D's column u belongs to output row t - u; lane (g, 0) holds
+  // columns 0 and 1, lane (g, 1) column 2
+  const float d2_lo = __shfl_down_sync(0xffffffffu, d[0], 1);
+  const float d2_hi = __shfl_down_sync(0xffffffffu, d[2], 1);
+  constexpr int DONE = (P + 1) % 3;  // output row t - 2: its last tap is in
+  r.r8[P][0] += d[0];
+  r.r8[P][1] += d[2];
+  r.r8[(P + 2) % 3][0] += d[1];
+  r.r8[(P + 2) % 3][1] += d[3];
+  r.r8[DONE][0] += d2_lo;
+  r.r8[DONE][1] += d2_hi;
+
+  if (t >= 2) {
+    const int g = lane >> 2, cq = lane & 3;
+    float* z0 = zs + (t & 1) * (MROWS * ZS) + (16 * warp + g) * ZS;
+    float* z1 = z0 + 8 * ZS;
+    z0[2 * cq] = r.acc[DONE][0];
+    z0[2 * cq + 1] = r.acc[DONE][1];
+    z1[2 * cq] = r.acc[DONE][2];
+    z1[2 * cq + 1] = r.acc[DONE][3];
+    if (cq == 0) {
+      z0[8] = r.r8[DONE][0];
+      z1[8] = r.r8[DONE][1];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r.acc[DONE][e] = 0.f;
+  r.r8[DONE][0] = r.r8[DONE][1] = 0.f;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 conv_out_s2d_kernel(const __nv_bfloat16* __restrict__ feat,
                     const float* __restrict__ wgt,
-                    const float* __restrict__ bias,
+                    const float* __restrict__ bias_g,
                     __nv_bfloat16* __restrict__ out, int H, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);
-  uint32_t* f_s = reinterpret_cast<uint32_t*>(smem + W_BYTES);
+  extern __shared__ __align__(128) unsigned char smem[];
 
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * TR;
-  const int j0 = blockIdx.x * TC;
-  const int H4 = 4 * H, W4 = 4 * W;
-  const int y0 = 4 * i0 - 1, x0 = 4 * j0 - 1;  // HR origin of the tile
-  const __nv_bfloat16* img = feat + (size_t)b * H4 * W4 * K;
+  Band s;
+  s.H = H;
+  s.W = W;
+  s.b = blockIdx.z;
+  s.i0 = blockIdx.y * BH;
+  s.j0 = blockIdx.x * TC;
+  s.nb = min(BH, H - s.i0);
+  s.NR = 4 * s.nb + 2;
+  s.img = feat + (size_t)s.b * (4 * H) * (4 * W) * K;
+  s.out = out;
+  s.smem = smem;
+  s.ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-  // Stage the HR tile: 8 consecutive threads copy one pixel's 128 bytes.
-  for (int t = threadIdx.x; t < SH * SW * CHUNKS; t += THREADS) {
-    const int q = t % CHUNKS;
-    const int p = t / CHUNKS;
-    const int c = p % SW;
-    const int r = p / SW;
-    const int y = y0 + r, x = x0 + c;
-    const bool inside = y >= 0 && y < H4 && x >= 0 && x < W4;
-    const __nv_bfloat16* src =
-        inside ? img + ((size_t)y * W4 + x) * K + q * 8 : img;
-    cp_async16(f_s + r * ROW_WORDS + c * PIX_WORDS + q * 4, src,
-               inside ? 16 : 0);
+  // the first STAGES - 1 rows in flight while the weights are built
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    stage_row(s, t);  // NR >= 6 > STAGES - 1
+    cp_async_commit();
   }
-  for (int t = threadIdx.x; t < W_FLOATS / 4; t += THREADS) {
-    reinterpret_cast<float4*>(w_s)[t] = reinterpret_cast<const float4*>(wgt)[t];
+
+  // w[u, v, k, c] in HWIO at ((u*3 + v)*K + k)*C + c, rounded to bf16
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  Warp r;
+#pragma unroll
+  for (int kt = 0; kt < K / 16; ++kt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * kt + 8 * h + 2 * cq;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const float* w = wgt + ((u * 3 + g / C) * K + k) * C + g % C;  // n = g
+        r.bw[u][kt][h] = pack_bf16x2(__ldg(w), __ldg(w + C));
+      }
+      const float* w = wgt + ((min(g, 2) * 3 + 2) * K + k) * C + 2;  // (u = g, v 2, c 2)
+      r.bd[kt][h] = g < 3 ? pack_bf16x2(__ldg(w), __ldg(w + C)) : 0u;
+    }
+#pragma unroll
+  for (int c = 0; c < C; ++c) r.bias[c] = __ldg(bias_g + c);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r.acc[p][e] = 0.f;
+    r.r8[p][0] = r.r8[p][1] = 0.f;
   }
-  cp_async_wait_all();
+
+  for (int t = 0; t < s.NR; t += 3) {
+    band_row<0>(s, t, r);
+    if (t + 1 < s.NR) band_row<1>(s, t + 1, r);
+    if (t + 2 < s.NR) band_row<2>(s, t + 2, r);
+  }
+  // the band's last output row, finished at step NR - 1, and its LR row
+  cp_async_wait<0>();
   __syncthreads();
-
-  const int a = threadIdx.x & 3;
-  const int tj = (threadIdx.x >> 2) % TC;
-  const int ti = (threadIdx.x >> 2) / TC;
-
-  float acc[4][C];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[p][c] = 0.f;
-
-#pragma unroll
-  for (int u = 0; u < 3; ++u) {
-    // staged row of HR row 4i+a+u-1; columns 4j-1 .. 4j+4 are 4tj .. 4tj+5
-    const uint32_t* rowp = f_s + (4 * ti + a + u) * ROW_WORDS + 4 * tj * PIX_WORDS;
-#pragma unroll 1
-    for (int q = 0; q < CHUNKS; ++q) {
-      float f[6][8];
-#pragma unroll
-      for (int m = 0; m < 6; ++m) {
-        const uint4 v4 =
-            *reinterpret_cast<const uint4*>(rowp + m * PIX_WORDS + q * 4);
-        const uint32_t wd[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          f[m][2 * e] = __uint_as_float(wd[e] << 16);
-          f[m][2 * e + 1] = __uint_as_float(wd[e] & 0xffff0000u);
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const float4* wp =
-            reinterpret_cast<const float4*>(w_s + ((u * 3 + v) * K + q * 8) * C);
-        float w[8 * C];
-#pragma unroll
-        for (int e = 0; e < 2 * C; ++e) {
-          const float4 t4 = wp[e];
-          w[4 * e] = t4.x;
-          w[4 * e + 1] = t4.y;
-          w[4 * e + 2] = t4.z;
-          w[4 * e + 3] = t4.w;
-        }
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-              acc[p][c] = fmaf(f[p + v][k], w[k * C + c], acc[p][c]);
-      }
-    }
-  }
-
-  const int i = i0 + ti, j = j0 + tj;
-  if (i < H && j < W) {
-    __nv_bfloat16* o = out + (((size_t)b * H + i) * W + j) * (16 * C) + a * 4;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float bc = bias[c];
-      float s[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) s[p] = 1.f / (1.f + __expf(-(acc[p][c] + bc)));
-      uint2 pk;
-      pk.x = pack_bf16x2(s[0], s[1]);
-      pk.y = pack_bf16x2(s[2], s[3]);
-      *reinterpret_cast<uint2*>(o + c * 16) = pk;
-    }
-  }
+  epilogue(s, s.NR - 3, reinterpret_cast<const float*>(smem + RING_BYTES) +
+                            ((s.NR - 1) & 1) * (MROWS * ZS), r.bias);
+  __syncthreads();
+  store_row(s, s.nb - 1);
 }
 
 }  // namespace
@@ -194,7 +330,7 @@ extern "C" int conv_out_s2d_init() {
 extern "C" int conv_out_s2d_launch(const void* feat, const void* weight,
                                    const void* bias, void* out, int B, int H,
                                    int W, void* stream) {
-  const dim3 grid((W + TC - 1) / TC, (H + TR - 1) / TR, B);
+  const dim3 grid((W + TC - 1) / TC, (H + BH - 1) / BH, B);
   conv_out_s2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(weight),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W);

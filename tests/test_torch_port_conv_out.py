@@ -59,6 +59,90 @@ def test_reference_matches_jax(rng, shape, impl):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
 
 
+def _conv_out_model(feat, k, b, tc, bh):
+    """A torch transliteration, in fp32, of how csrc/conv_out_s2d.cu
+    decomposes the function: strips of ``tc`` LR columns with a 1-pixel
+    halo, staged in M tiles of 16 pixel slots (zero-filled outside the
+    image and past the strip); bands of ``bh`` LR rows walked one HR input
+    row at a time.  Each row's products with the bf16-rounded weights go
+    into the rolling accumulators of output row ``t - u``: ``F_row @ W_u``
+    for columns ``n = 3v + c < 8`` (one 8-column tile per row tap ``u``),
+    and column 8, ``(v 2, c 2)``, of all three taps from one shared tile
+    ``F_row @ W_D`` (its column ``u``).  Once a row is complete, the column
+    shift on its 9 sums, bias and sigmoid into the LR row's s2d records,
+    stored after sub-row 3."""
+    B, H4, W4, K = feat.shape
+    H, W = H4 // 4, W4 // 4
+    sw = 4 * tc + 2
+    mrows = 16 * ((sw + 15) // 16)
+    kb = k.bfloat16().float()
+    wn = kb.permute(0, 2, 1, 3).reshape(3, K, 9)[:, :, :8]  # (u, k, 3v + c)
+    wd = torch.zeros(K, 8)
+    wd[:, :3] = kb[:, 2, :, 2].T  # column u: (u, v 2, c 2)
+    out = torch.full((B, H, W, 48), float("nan"))
+    slots = torch.arange(mrows)
+    for bi in range(B):
+        for j0 in range(0, W, tc):
+            x = 4 * j0 - 1 + slots
+            cols_in = (slots < sw) & (x >= 0) & (x < W4)
+            for i0 in range(0, H, bh):
+                nr = 4 * min(bh, H - i0) + 2
+                acc = [torch.zeros(mrows, 8) for _ in range(3)]
+                r8 = [torch.zeros(mrows) for _ in range(3)]
+                rec = torch.zeros(tc, 3, 4, 4)  # (j, c, a, bb)
+                for t in range(nr):
+                    r = 4 * i0 - 1 + t
+                    row = torch.zeros(mrows, K)
+                    if 0 <= r < H4:
+                        row[cols_in] = feat[bi, r, x[cols_in]]
+                    d = row @ wd
+                    for u in range(3):
+                        acc[(t - u) % 3] += row @ wn[u]
+                        r8[(t - u) % 3] += d[:, u]
+                    o, done = t - 2, (t + 1) % 3
+                    if o >= 0:
+                        z = torch.cat([acc[done], r8[done][:, None]], dim=1)
+                        xl = torch.arange(4 * tc)
+                        y = b + z[xl, 0:3] + z[xl + 1, 3:6] + z[xl + 2, 6:9]
+                        rec[:, :, o % 4, :] = torch.sigmoid(y).view(tc, 4, 3).permute(0, 2, 1)
+                        if o % 4 == 3:
+                            nj = min(tc, W - j0)
+                            out[bi, i0 + o // 4, j0:j0 + nj] = rec[:nj].reshape(nj, 48)
+                    acc[done], r8[done] = torch.zeros(mrows, 8), torch.zeros(mrows)
+    return out
+
+
+# the kernel's tiling (TC, BH) and a small one that cuts these shapes into
+# many strips and bands with ragged tails
+TILINGS = {"kernel": (30, 17), "small": (2, 3)}
+
+
+@pytest.mark.parametrize("tiling", list(TILINGS))
+@pytest.mark.parametrize("shape", SHAPES + [(1, 4, 4, 64), (2, 12, 4 * 37, 64)])
+def test_kernel_tiling_model_matches_reference(rng, shape, tiling):
+    feat, k, b = _inputs(rng, shape)
+    feat, k, b = torch.from_numpy(feat), torch.from_numpy(k), torch.from_numpy(b)
+    got = _conv_out_model(feat, k, b, *TILINGS[tiling])
+    want = kmod.conv_out_s2d_reference(feat, k.bfloat16().float(), b)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 24, 36, 64)])
+def test_reference_on_bf16_weights_matches_pallas_bf16(rng, shape):
+    """The kernel rounds its f32 weights to bf16, as the JAX route casts
+    them to the features' dtype (conv_out_s2d.py:187): the plain version
+    on bf16-rounded weights equals the paired Pallas kernel on bf16
+    features (products exact in f32; only the summation order differs)."""
+    feat, k, b = _inputs(rng, shape)
+    feat16 = torch.from_numpy(feat).bfloat16()
+    ref = conv_out_s2d_pallas_paired(
+        jnp.asarray(feat16.float().numpy(), jnp.bfloat16), jnp.asarray(k),
+        jnp.asarray(b), out_dtype=jnp.float32, interpret=True)
+    got = kmod.conv_out_s2d_reference(feat16.float(), torch.from_numpy(k).bfloat16().float(),
+                                      torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
 def test_cpu_dispatch_takes_the_plain_version(rng):
     feat, k, b = _inputs(rng, (1, 8, 12, 64))
     args = (torch.from_numpy(feat), torch.from_numpy(k), torch.from_numpy(b))

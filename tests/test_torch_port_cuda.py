@@ -69,11 +69,16 @@ def _models(dev, cfg, seed=0):
     return gpu.eval(), cpu.eval()
 
 
+# the last spans 5 strips and 5 bands of the kernel's tiling, with ragged
+# tails in both
 @pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 36, 44, 64),
-                                   (1, 148, 212, 64), (3, 4, 4, 64)])
+                                   (1, 148, 212, 64), (3, 4, 4, 64),
+                                   (2, 4 * 67, 4 * 133, 64)])
 def test_kernel_matches_reference(cuda, shape):
+    """Against the plain version on the bf16-rounded weights the kernel
+    computes with, so that the bars measure its arithmetic."""
     feat, k, b = _inputs(cuda, shape)
-    ref = kmod.conv_out_s2d_reference(feat.float(), k, b)
+    ref = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
     kmod.launch_count = 0
     got = kmod.conv_out_s2d_cuda(feat, k, b)
     torch.cuda.synchronize()
@@ -105,7 +110,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("shape,lo,hi", [((1, 8, 12), 0.0, 1.0),
                                          ((2, 5, 7), -0.5, 0.5),
                                          ((3, 37, 53), -0.5, 0.5),
-                                         ((1, 68, 120), 0.0, 1.0)])
+                                         ((1, 68, 120), 0.0, 1.0),
+                                         ((2, 67, 133), -0.5, 0.5)])
 def test_warp_kernel_matches_reference(cuda, shape, lo, hi):
     carry, prev_lr = _warp_inputs(cuda, shape, lo, hi)
     ref = wmod.warp_s2d_feedback_reference(carry, prev_lr)

@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``tecogan_tpu_torch/csrc`` (one
 ``nvcc`` a source, started together) and drives the serving paths a user
 calls -- random full-width weights through ``generator_state_dict_from_jax``
 into ``build_clip_inference``, ``build_chunked_inference`` and
-``build_stream_inference`` -- at 270p -> 1080p.  Phases:
+``build_stream_inference`` -- at 270p -> 1080p, then the train step
+(``init_state`` / ``state_from_params`` + ``build_train_step``) at the
+paper's config.  Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
@@ -36,7 +38,25 @@ into ``build_clip_inference``, ``build_chunked_inference`` and
    of 16 with ``out_u8`` and a sink, bit-equal to the one-shot clip; peak
    device memory at 80 frames against 40; fps;
 8. streaming inference at full width: 16 frames through ``step_fn``,
-   bit-equal to the clip route; per-frame latency.
+   bit-equal to the clip route; per-frame latency;
+9. full-width training through ``init_state`` + ``build_train_step`` (the
+   default config: B=4, RNN_N=10, crop 32, 16 resblocks, D 4 x 128, bf16;
+   random flax-layout weights from seed 0, batches from
+   ``synthetic_scene_batch``), with ``bug_parity`` on and off: 3 warm-up
+   and 20 timed steps; every loss finite, both models' params moved, the
+   D mask counter, ms a step, samples/s, TFLOP/s and MFU from
+   ``train_step_macs``, peak device memory;
+10. the card against the CPU: 3 steps at the tiny config in fp32 (TF32
+   off) from the same weights and batches, ``gen_loss`` within 1e-4
+   relative each step and ``d_loss`` at step 0; then bf16 against fp32 on
+   the card at full width, step 0's ``gen_loss`` and ``d_loss`` within
+   2e-2 relative (about five bf16 unit roundoffs, 2**-8 each);
+11. checkpoint resume on the card: the full-width state after step 2
+   saved and loaded into a fresh state, every tensor bit-equal; the step
+   after the load against the step after the save within 1e-4.
+
+Phases 9-11 run no hand kernel: training runs cuDNN convs and
+``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 
 Phases 7 and 8 hold cuDNN to deterministic algorithms: the transposed
 convs' default algorithm may sum in a different order from one call to
@@ -77,6 +97,9 @@ CHUNK_T, CHUNK, LONG_T = 40, 16, 80
 STREAM_T = 16
 FRAME_BUDGET_MS = 1e3 / 30           # a 30 fps live stream
 MEMORY_SLACK = 1.05
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+CARD_CPU_RTOL = 1e-4                 # fp32, TF32 off: summation order only
+BF16_RTOL = 2e-2                     # ~5 bf16 unit roundoffs (2**-8)
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_BF16_FLOPS = 989e12             # dense tensor cores, data sheet
 PEAK_F32_FLOPS = 67e12               # CUDA cores, data sheet
@@ -127,6 +150,147 @@ def warp_work(carry: torch.Tensor, prev_lr: torch.Tensor) -> tuple:
     bytes_moved = int(touched.sum()) * 3 * 2 + B * H * W * 2 * 4 + carry.numel() * 2
     ops = B * H4 * W4 * WARP_OPS_PER_PIXEL + taps * 3 * WARP_OPS_PER_TAP_CHANNEL
     return bytes_moved, ops, taps / (4 * B * H4 * W4)
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def train_phases(dev: torch.device, smi: str) -> None:
+    """Phases 9-11: the train step on the card."""
+    import tempfile
+
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+    from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
+                                                state_from_params)
+    from tecogan_tpu_torch.engine.train import build_train_step
+    from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+    from tecogan_tpu_torch.utils.flops import train_mfu
+
+    def weights(cfg, seed):
+        g = torch.Generator().manual_seed(seed)
+        return (init_generator(cfg, g), *init_discriminator(cfg, g))
+
+    def batches(cfg, n, device):
+        out = []
+        for i in range(n):
+            lr, hr = synthetic_scene_batch(cfg.batch_size, cfg.RNN_N, cfg.crop_size,
+                                           seed=i * cfg.batch_size)
+            out.append((torch.from_numpy(lr).to(device), torch.from_numpy(hr).to(device)))
+        return out
+
+    def moved(a: dict, b: dict) -> bool:
+        return any(not torch.equal(a[k], b[k]) for k in a)
+
+    full = TecoConfig(precision="bf16")  # the defaults are the paper's config
+    full_batches = batches(full, 4, dev)
+    w_full = weights(full, 0)
+
+    # -- 9. full-width training, bug_parity on and off
+    for bp in (True, False):
+        cfg = full.replace(bug_parity=bp)
+        state0 = state_from_params(cfg, *w_full, device=dev)
+        step = build_train_step(cfg)
+        state, times, d_on = state0, [], 0.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            lr, hr = full_batches[i % len(full_batches)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics, gen_out = step(state, lr, hr)
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                times.append(time.perf_counter() - t0)
+            losses = {k: float(v) for k, v in metrics.items() if "loss" in k}
+            require(all(np.isfinite(v) for v in losses.values()),
+                    f"[9] non-finite loss at step {i}: {losses}")
+            d_on += float(metrics["withD_counter"])
+        peak = torch.cuda.max_memory_allocated(dev)
+        n = TRAIN_WARMUP + TRAIN_STEPS
+        require(tuple(gen_out.shape) == (4, 10, 3, 128, 128), f"[9] gen out {tuple(gen_out.shape)}")
+        require(moved(state0.params_g, state.params_g), "[9] G params did not move")
+        require(moved(state0.params_d, state.params_d) == (d_on > 0),
+                f"[9] D params moved {moved(state0.params_d, state.params_d)} "
+                f"with {d_on} D updates")
+        require(state.step == n and state.opt_d.count == n, "[9] step / Adam count")
+        med = statistics.median(times)
+        mfu = train_mfu(med * 1e3, 4, 10, 32, bug_parity=bp)
+        print(f"[9] train step bug_parity={bp}, B=4 RNN_N=10 crop 32, 16 resblocks, D 4x128, "
+              f"bf16: {med * 1e3:.3f} ms a step median (min {min(times) * 1e3:.3f}, max "
+              f"{max(times) * 1e3:.3f}, n={len(times)}), {4 / med:.2f} samples/s, "
+              f"{mfu['achieved_tflops']:.3f} TFLOP/s of {mfu['train_tflop_per_step']:.4f} "
+              f"TFLOP a step, MFU {mfu['mfu']:.4%} of 989 TFLOP/s | D updates {d_on:.0f} of "
+              f"{n} | gen_loss {float(metrics['gen_loss']):.6f} d_loss "
+              f"{float(metrics['d_loss']):.6f} | peak device memory {peak / 2**30:.3f} GiB | "
+              f"{smi}", flush=True)
+        del state, state0, step, gen_out
+
+    # -- 10. the card against the CPU (tiny, fp32, TF32 off), then bf16 vs fp32
+    tiny = TecoConfig(crop_size=8, RNN_N=9, num_resblock=2, discrim_resblocks=1,
+                      discrim_channels=16, batch_size=2, precision="fp32")
+    w_tiny = weights(tiny, 1)
+    tiny_batches = batches(tiny, 3, "cpu")
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        state = state_from_params(tiny, *w_tiny, device=where)
+        step = build_train_step(tiny, device=where)
+        runs[where.type] = []
+        for lr, hr in tiny_batches:
+            state, metrics, _ = step(state, lr.to(where), hr.to(where))
+            runs[where.type].append((float(metrics["gen_loss"]), float(metrics["d_loss"])))
+    for i, ((gg, gd), (cg, cd)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        require(rel(gg, cg) <= CARD_CPU_RTOL, f"[10] gen_loss step {i}: card {gg} cpu {cg}")
+    require(rel(runs["cuda"][0][1], runs["cpu"][0][1]) <= CARD_CPU_RTOL,
+            f"[10] d_loss step 0: card {runs['cuda'][0][1]} cpu {runs['cpu'][0][1]}")
+    worst_g = max(rel(a[0], b[0]) for a, b in zip(runs["cuda"], runs["cpu"]))
+    lr, hr = full_batches[0]
+    step0 = {}
+    for prec in ("bf16", "fp32"):
+        cfg = full.replace(precision=prec)
+        _, metrics, _ = build_train_step(cfg)(state_from_params(cfg, *w_full, device=dev), lr, hr)
+        step0[prec] = (float(metrics["gen_loss"]), float(metrics["d_loss"]))
+    bf_g, bf_d = rel(step0["bf16"][0], step0["fp32"][0]), rel(step0["bf16"][1], step0["fp32"][1])
+    print(f"[10] card vs CPU, tiny fp32, 3 steps: gen_loss rel {worst_g:.3e} (worst), d_loss "
+          f"step 0 rel {rel(runs['cuda'][0][1], runs['cpu'][0][1]):.3e} (bar {CARD_CPU_RTOL}) | "
+          f"full width bf16 vs fp32 step 0: gen_loss {step0['bf16'][0]:.6f} / "
+          f"{step0['fp32'][0]:.6f} rel {bf_g:.3e}, d_loss {step0['bf16'][1]:.6f} / "
+          f"{step0['fp32'][1]:.6f} rel {bf_d:.3e} (bar {BF16_RTOL})", flush=True)
+    require(bf_g <= BF16_RTOL and bf_d <= BF16_RTOL, "[10] bf16 vs fp32 beyond the bar")
+
+    # -- 11. checkpoint resume on the card
+    cfg = full
+    step = build_train_step(cfg)
+    state = state_from_params(cfg, *w_full, device=dev)
+    for i in range(2):
+        state, _, _ = step(state, *full_batches[i])
+    template = state_from_params(cfg, *weights(cfg, 7), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_state(tmp, state, epoch=3)
+        loaded, epoch = load_train_state(tmp, template)
+    tensors = [("params_g", state.params_g, loaded.params_g),
+               ("params_d", state.params_d, loaded.params_d),
+               ("batch_stats_d", state.batch_stats_d, loaded.batch_stats_d),
+               ("opt_g.mu", state.opt_g.mu, loaded.opt_g.mu),
+               ("opt_g.nu", state.opt_g.nu, loaded.opt_g.nu),
+               ("opt_d.mu", state.opt_d.mu, loaded.opt_d.mu),
+               ("opt_d.nu", state.opt_d.nu, loaded.opt_d.nu)]
+    for what, a, b in tensors:
+        require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                f"[11] {what} differs after the round trip")
+    require((loaded.step, loaded.epoch, epoch) == (2, 3, 3), "[11] step / epoch")
+    require((loaded.opt_g.count, loaded.opt_d.count) == (2, 2)
+            and loaded.opt_g.learning_rate == state.opt_g.learning_rate
+            and loaded.opt_d.learning_rate == state.opt_d.learning_rate, "[11] Adam counts / rates")
+    after_save = step(state.replace(epoch=3), *full_batches[2])[1]
+    after_load = step(loaded, *full_batches[2])[1]
+    r_g = rel(float(after_load["gen_loss"]), float(after_save["gen_loss"]))
+    r_d = rel(float(after_load["d_loss"]), float(after_save["d_loss"]))
+    n_t = sum(len(a) for _, a, _ in tensors)
+    print(f"[11] checkpoint after step 2: {n_t} tensors + counts, step, epoch bit-equal after "
+          f"save/load | next step gen_loss rel {r_g:.3e}, d_loss rel {r_d:.3e} "
+          f"(bar {CARD_CPU_RTOL}) | {smi}", flush=True)
+    require(r_g <= CARD_CPU_RTOL and r_d <= CARD_CPU_RTOL, "[11] step after load differs")
 
 
 def main() -> None:
@@ -384,6 +548,8 @@ def main() -> None:
           f"p50 {statistics.median(lat_ms):.3f} ms, max {max(lat_ms):.3f} ms "
           f"(line {FRAME_BUDGET_MS:.1f} ms) | launches conv_out_s2d {counts[0]}, "
           f"warp_s2d {counts[1]} | {smi}", flush=True)
+
+    train_phases(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

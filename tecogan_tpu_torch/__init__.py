@@ -1,10 +1,13 @@
-"""PyTorch / CUDA port of the TecoGAN recurrent 4x VSR serving path.
+"""PyTorch / CUDA port of TecoGAN's recurrent 4x VSR serving path and
+its train step.
 
 Mirrors the module layout of ``tecogan_tpu`` (the JAX reference, which
 stays as it is): ``ops`` (image range maps, space-to-depth, resize, warp),
-``models`` (layers, generator), ``engine`` (state, inference, the fused
-s2d-carry route), ``utils`` (checkpoint loader, weight bridge, FLOP count)
-and ``ops/kernels`` with the hand-written CUDA kernels for Hopper.
+``models`` (layers, generator, discriminator), ``engine`` (state and
+optimizers, inference, the fused s2d-carry route, losses, the train
+step), ``data`` (synthetic training clips), ``utils`` (checkpoints, the
+weight bridge, FLOP counts, GPU timing) and ``ops/kernels`` with the
+hand-written CUDA kernels for Hopper.
 
 The package imports ``torch`` and never ``jax``, nor anything of the JAX
 package: ``config.py`` is its own copy of ``TecoConfig``.  Public

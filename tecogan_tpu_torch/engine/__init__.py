@@ -1,1 +1,2 @@
-"""Model construction and the recurrent clip inference."""
+"""Model construction, the training state, recurrent clip inference, the
+losses and the train step."""

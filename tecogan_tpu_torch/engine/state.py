@@ -1,21 +1,34 @@
-"""Model construction and random generator weights
-(tecogan_tpu/engine/state.py::model_defs).
+"""Model construction, random weights and the training state
+(tecogan_tpu/engine/state.py).
 
 Weights are made in the JAX package's numpy layout (flax names, HWIO
-kernels), so one tree feeds both packages: the JAX generator directly and
-the port through ``utils.convert.generator_state_dict_from_jax``.
+kernels), so one tree feeds both packages: the JAX models directly and
+the port through ``utils.convert``.
+
+The training state mirrors the JAX ``TrainState``: float32 params (the
+layers cast them to ``cfg.precision`` at use), the discriminator's BN
+running statistics, one Adam state per model and the step and epoch
+counters.  Params and moments are ``state_dict``-keyed tensors on the
+training device; :func:`engine.train.build_train_step` returns a new
+state each step and leaves the old one as it was.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import TecoConfig
-from ..models import Generator
+from ..models import Discriminator, Generator
+from ..models.layers import conv_memory_format
+from ..utils.convert import (discriminator_state_dict_from_jax,
+                             generator_state_dict_from_jax)
+
+Tensors = Dict[str, torch.Tensor]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,30 +43,56 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _compute_dtype(cfg: TecoConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+
+
 def model_defs(cfg: TecoConfig, device=None) -> Generator:
-    """The generator for ``cfg`` (compute dtype from ``cfg.precision``) on
-    ``device`` (default: the card, see :func:`resolve_device`).  The JAX
-    function also returns the discriminator, which belongs to training
-    and is not ported yet."""
-    dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    """The serving generator for ``cfg`` (weights held in the compute dtype
+    from ``cfg.precision``) on ``device`` (default: the card, see
+    :func:`resolve_device`).  The training models are
+    :func:`train_model_defs`."""
+    dtype = _compute_dtype(cfg)
     dev = resolve_device(device)
     return Generator(num_resblock=cfg.num_resblock, out_channels=3,
                      dtype=dtype).to(dev)
 
 
+def train_model_defs(cfg: TecoConfig, device=None) -> Tuple[Generator, Discriminator]:
+    """The generator and the discriminator of the train step: float32
+    params, compute in ``cfg.precision``, the discriminator sized for
+    :func:`engine.losses.d_input_spec`.  The train step runs them with the
+    state's params (``torch.func.functional_call``)."""
+    from .losses import d_input_spec
+
+    dtype = _compute_dtype(cfg)
+    dev = resolve_device(device)
+    d_ch, d_hw = d_input_spec(cfg)
+    gen = Generator(num_resblock=cfg.num_resblock, out_channels=3, dtype=dtype,
+                    param_dtype=torch.float32)
+    disc = Discriminator(resblocks=cfg.discrim_resblocks,
+                         channels=cfg.discrim_channels, dtype=dtype,
+                         in_channels=d_ch, in_size=d_hw)
+    return gen.to(dev), disc.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# random weights in the flax layout
+# ---------------------------------------------------------------------------
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> np.ndarray:
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return ((u * 2.0 - 1.0) * bound).numpy()
+
+
 def _conv_params(gen: torch.Generator, in_ch: int, out_ch: int,
-                 bias: bool = True) -> Dict[str, np.ndarray]:
+                 bias: bool = True, kernel: int = 3) -> Dict[str, np.ndarray]:
     """torch's Conv2d default init, U(+-sqrt(1/fan_in)) for kernel and
     bias, drawn as an HWIO kernel (tecogan_tpu/models/layers.py)."""
-    bound = math.sqrt(1.0 / (9 * in_ch))
-
-    def uniform(shape):
-        u = torch.rand(shape, generator=gen, dtype=torch.float32)
-        return ((u * 2.0 - 1.0) * bound).numpy()
-
-    p = {"kernel": uniform((3, 3, in_ch, out_ch))}
+    bound = math.sqrt(1.0 / (kernel * kernel * in_ch))
+    p = {"kernel": _uniform(gen, (kernel, kernel, in_ch, out_ch), bound)}
     if bias:
-        p["bias"] = uniform((out_ch,))
+        p["bias"] = _uniform(gen, (out_ch,), bound)
     return p
 
 
@@ -77,3 +116,193 @@ def init_generator(cfg: TecoConfig, generator: torch.Generator) -> Dict[str, Any
     params["conv_hr"] = _conv_params(generator, 128, 64)
     params["conv_out"] = _conv_params(generator, 64, 3)
     return params
+
+
+def init_discriminator(cfg: TecoConfig, generator: torch.Generator
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Random discriminator ``(params, batch_stats)`` in the flax layout,
+    drawn from ``generator``: torch's conv init as for the generator,
+    BatchNorm scale 1 and bias 0, running mean 0 and var 1 (flax's
+    defaults), the fc kernel xavier-uniform with a U(+-1/sqrt(in)) bias
+    (tecogan_tpu/models/layers.py:171-203)."""
+    from .losses import d_input_spec
+
+    d_ch, d_hw = d_input_spec(cfg)
+    C = cfg.discrim_channels
+    params: Dict[str, Any] = {"conv_in": _conv_params(generator, d_ch, 64)}
+    stats: Dict[str, Any] = {}
+
+    def bn(features):
+        return ({"scale": np.ones(features, np.float32),
+                 "bias": np.zeros(features, np.float32)},
+                {"mean": np.zeros(features, np.float32),
+                 "var": np.ones(features, np.float32)})
+
+    def block(name, in_ch, features):
+        p, s = bn(features)
+        params[name] = {"Conv_0": _conv_params(generator, in_ch, features,
+                                               bias=False, kernel=4),
+                        "BatchNorm_0": p}
+        stats[name] = {"BatchNorm_0": s}
+
+    def resids(name, features):
+        params[name], stats[name] = {}, {}
+        for i in range(cfg.discrim_resblocks):
+            params[name][f"rb_{i}"] = {
+                "Conv_0": _conv_params(generator, features, features),
+                "Conv_1": _conv_params(generator, features, features, bias=False)}
+            params[name][f"bn_{i}"], stats[name][f"bn_{i}"] = bn(features)
+
+    block("block1", 64, 64)
+    resids("resids1", 64)
+    block("block2", 64, C)
+    resids("resids2", C)
+    block("block3", C, C)
+    resids("resids3", C)
+    block("block4", C, 64)
+    block("block5", 64, 3)
+    side = d_hw
+    for _ in range(5):
+        side = (side + 2 - 4) // 2 + 1
+    fc_in = 3 * side * side
+    params["fc"] = {"kernel": _uniform(generator, (fc_in, 1), math.sqrt(6.0 / (fc_in + 1))),
+                    "bias": _uniform(generator, (1,), 1.0 / math.sqrt(fc_in))}
+    return params, stats
+
+
+# ---------------------------------------------------------------------------
+# optimizers and the training state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdamState:
+    """``optax.inject_hyperparams(optax.adam)``'s state: the update count,
+    the first and second moments keyed like the params, and the learning
+    rate of the last update (the injected hyperparameter, float32)."""
+
+    count: int
+    mu: Tensors
+    nu: Tensors
+    learning_rate: float
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """Adam in optax's form (tecogan_tpu/engine/state.py:47-58): ``mu = (1
+    - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, ``update = mu_hat /
+    (sqrt(nu_hat) + eps)`` with the bias corrections of the new count,
+    the learning rate set every step.  Functional, on lists of tensors
+    (``torch._foreach_*``): ``torch.optim.Adam`` cannot advance its
+    moments without applying the step, which the masked D update needs."""
+
+    b1: float
+    b2: float
+    eps: float
+    lr_scale: float
+
+    def init(self, params: Tensors, learning_rate: float) -> AdamState:
+        return AdamState(
+            count=0, mu={k: torch.zeros_like(v) for k, v in params.items()},
+            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            learning_rate=float(np.float32(learning_rate * self.lr_scale)))
+
+    def update(self, params: Tensors, grads: Tensors, state: AdamState,
+               learning_rate: float, apply: Optional[torch.Tensor] = None
+               ) -> Tuple[Tensors, AdamState]:
+        """One step at ``learning_rate`` (the schedule's rate; this
+        optimizer's scale is applied here).  ``apply``, a bool tensor,
+        masks the update of the params; the moments and the count advance
+        either way."""
+        keys = list(params)
+        g = [grads[k] for k in keys]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1.0 - self.b1),
+                                torch._foreach_mul([state.mu[k] for k in keys], self.b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.b2),
+            torch._foreach_mul([state.nu[k] for k in keys], self.b2))
+        count = state.count + 1
+        # the bias corrections in float32, as optax computes them
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
+                                 self.eps)
+        step = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        lr = float(np.float32(learning_rate) * np.float32(self.lr_scale))
+        step = torch._foreach_mul(step, -lr)
+        if apply is not None:
+            step = [torch.where(apply, s, 0.0) for s in step]
+        new = torch._foreach_add([params[k] for k in keys], step)
+        return (dict(zip(keys, new)),
+                AdamState(count=count, mu=dict(zip(keys, mu)),
+                          nu=dict(zip(keys, nu)), learning_rate=lr))
+
+
+def lr_schedule(cfg: TecoConfig):
+    """StepLR: ``lr * decay_rate ** (epoch // decay_step)``, staircase, in
+    float32 -- torch's StepLR stepped per epoch (main.py:247-248,296)."""
+
+    def schedule(epoch: int) -> float:
+        return float(np.float32(cfg.learning_rate) * np.power(
+            np.float32(cfg.decay_rate), np.float32(epoch // cfg.decay_step)))
+
+    return schedule
+
+
+def make_optimizers(cfg: TecoConfig) -> Tuple[Adam, Adam, Any]:
+    """(G's Adam, D's Adam, the schedule): Adam(beta, 0.999, adameps) for
+    both, D's rate x0.3 when ``Dt_mergeDs`` is off (main.py:237-238)."""
+    d_scale = 1.0 if cfg.Dt_mergeDs else 0.3
+    return (Adam(cfg.beta, 0.999, cfg.adameps, 1.0),
+            Adam(cfg.beta, 0.999, cfg.adameps, d_scale), lr_schedule(cfg))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """The JAX ``TrainState`` (tecogan_tpu/engine/state.py:24-32):
+    ``params_g`` / ``params_d`` are the models' float32 params by
+    ``state_dict`` key, ``batch_stats_d`` the discriminator's BN running
+    statistics (``<bn module>.mean`` / ``.var``)."""
+
+    params_g: Tensors
+    params_d: Tensors
+    batch_stats_d: Tensors
+    opt_g: AdamState
+    opt_d: AdamState
+    step: int
+    epoch: int
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
+
+
+def _on_device(sd: Tensors, dev: torch.device) -> Tensors:
+    """float32 tensors on ``dev``, 4-D ones in the layout the training
+    path's convs run in there (``models.layers.conv_memory_format``)."""
+    fmt = conv_memory_format(dev)
+    return {k: v.to(dev, torch.float32,
+                    memory_format=fmt if v.dim() == 4 else torch.preserve_format)
+            for k, v in sd.items()}
+
+
+def state_from_params(cfg: TecoConfig, params_g: Dict[str, Any],
+                      params_d: Dict[str, Any], batch_stats_d: Dict[str, Any],
+                      device=None) -> TrainState:
+    """A fresh training state (zero moments, step and epoch 0) from flax
+    trees of weights, e.g. the JAX package's or ``init_generator``'s."""
+    dev = resolve_device(device)
+    opt_g, opt_d, _ = make_optimizers(cfg)
+    pg = _on_device(generator_state_dict_from_jax(params_g), dev)
+    pd, sd = discriminator_state_dict_from_jax(params_d, batch_stats_d)
+    pd, sd = _on_device(pd, dev), _on_device(sd, dev)
+    return TrainState(params_g=pg, params_d=pd, batch_stats_d=sd,
+                      opt_g=opt_g.init(pg, cfg.learning_rate),
+                      opt_d=opt_d.init(pd, cfg.learning_rate), step=0, epoch=0)
+
+
+def init_state(cfg: TecoConfig, generator: torch.Generator, device=None) -> TrainState:
+    """Random weights for both models from ``generator`` (a seeded
+    torch.Generator on the CPU) as a fresh training state on ``device``
+    (default: the card, see :func:`resolve_device`)."""
+    params_g = init_generator(cfg, generator)
+    params_d, stats_d = init_discriminator(cfg, generator)
+    return state_from_params(cfg, params_g, params_d, stats_d, device)

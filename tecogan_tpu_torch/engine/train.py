@@ -1,0 +1,133 @@
+"""The TecoGAN train step (tecogan_tpu/engine/train.py).
+
+One step: the generator unroll, the triplet assembly, both losses and
+both Adam updates.  The G gradient is ``torch.autograd.grad`` of the full
+objective with respect to G's params alone (D's params are frozen in that
+pass); the D gradient re-runs only the discriminator on the detached
+triplet inputs with the pre-step D params.  The step is functional: it
+returns a new ``TrainState`` and leaves the one it was given as it was.
+
+The phases run under ``torch.profiler.record_function`` spans
+(``gen_objective``, ``gen_backward``, ``disc_step``, ``adam``), which
+``tools/profile_train.py`` reads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from ..config import TecoConfig
+from ..ops.image import transfer_dequantize_f32
+from .losses import discriminator_loss, tecogan_losses
+from .state import TrainState, make_optimizers, resolve_device, train_model_defs
+
+
+def _leaves(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().requires_grad_() for k, v in params.items()}
+
+
+def _batch(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A clip on the step's device; uint8 dequantizes there."""
+    x = x.to(dev, non_blocking=True)
+    return transfer_dequantize_f32(x) if x.dtype == torch.uint8 else x
+
+
+def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
+    """Returns ``train_step(state, lr_batch, hr_batch) -> (state, metrics,
+    gen_outputs)`` on ``device`` (default: the card, see
+    ``engine.state.resolve_device``).
+
+    lr_batch: (B, T, 3, H, W), hr_batch: (B, T, 3, 4H, 4W), float32 in
+    [0, 1] or uint8 (dequantized on the device).  ``metrics`` holds the
+    JAX step's keys as 0-d float32 tensors on the device;
+    ``gen_outputs`` is (B, T', 3, 4H, 4W), detached."""
+    dev = resolve_device(device)
+    gen, disc = train_model_defs(cfg, device=dev)
+    opt_g, opt_d, sched = make_optimizers(cfg)
+
+    def train_step(state: TrainState, lr_batch: torch.Tensor,
+                   hr_batch: torch.Tensor):
+        lr_batch, hr_batch = _batch(lr_batch, dev), _batch(hr_batch, dev)
+        lr_now = sched(state.epoch)
+
+        params_g = _leaves(state.params_g)
+        with record_function("gen_objective"):
+            gen_loss, aux = tecogan_losses(
+                gen, disc, params_g, state.params_d, state.batch_stats_d,
+                lr_batch, hr_batch, state.step, cfg, vgg_apply)
+        with record_function("gen_backward"):
+            grads_g = dict(zip(params_g, torch.autograd.grad(
+                gen_loss, list(params_g.values()))))
+
+        with record_function("disc_step"):
+            params_d = _leaves(state.params_d)
+            d_loss, new_stats = discriminator_loss(
+                disc, params_d, state.batch_stats_d, aux["real_in"],
+                aux["fake_in"], cfg)
+            grads_d = dict(zip(params_d, torch.autograd.grad(
+                d_loss, list(params_d.values()))))
+
+        metrics = {k: v.detach() for k, v in aux["metrics"].items()}
+        # D-balance gating, active with bug_parity off: skip the D update
+        # while the balance EMA says D is winning (the reference threads
+        # counter1/counter2 but gates nothing)
+        if cfg.bug_parity:
+            apply_d = torch.ones((), dtype=torch.bool, device=dev)
+        else:
+            apply_d = metrics["t_balance"] < cfg.Dbalance
+        with record_function("adam"):
+            new_g, opt_g_state = opt_g.update(state.params_g, grads_g,
+                                              state.opt_g, lr_now)
+            new_d, opt_d_state = opt_d.update(
+                state.params_d, grads_d, state.opt_d, lr_now,
+                apply=None if cfg.bug_parity else apply_d)
+
+        metrics["learning_rate"] = torch.full((), lr_now, dtype=torch.float32,
+                                              device=dev)
+        metrics["d_loss"] = d_loss.detach()
+        metrics["gen_loss"] = gen_loss.detach()
+        metrics["withD_counter"] = apply_d.float()
+        metrics["w_o_D_counter"] = 1.0 - apply_d.float()
+
+        new_state = TrainState(params_g=new_g, params_d=new_d,
+                               batch_stats_d=new_stats, opt_g=opt_g_state,
+                               opt_d=opt_d_state, step=state.step + 1,
+                               epoch=state.epoch)
+        return new_state, metrics, aux["gen_outputs"].detach()
+
+    return train_step
+
+
+def build_multi_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
+    """K = ``cfg.steps_per_dispatch`` train steps per call:
+    ``multi_step(state, lr_k, hr_k) -> (state, metrics, last_gen_out)``
+    with lr_k (K, B, T, 3, H, W) / hr_k (K, B, T, 3, 4H, 4W); every metric
+    comes back stacked on a leading K axis (``metrics[...][k]`` is step
+    k)."""
+    k = int(cfg.steps_per_dispatch)
+    if k <= 1:
+        raise ValueError("build_multi_train_step requires steps_per_dispatch > 1")
+    step = build_train_step(cfg, vgg_apply, device)
+
+    def multi_step(state: TrainState, lr_k: torch.Tensor, hr_k: torch.Tensor
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor], torch.Tensor]:
+        if lr_k.shape[0] != k or hr_k.shape[0] != k:
+            raise ValueError(f"expected {k} batches, got {lr_k.shape[0]} and "
+                             f"{hr_k.shape[0]}")
+        per_step = []
+        for i in range(k):
+            state, metrics, gen_out = step(state, lr_k[i], hr_k[i])
+            per_step.append(metrics)
+        stacked = {name: torch.stack([m[name] for m in per_step])
+                   for name in per_step[0]}
+        return state, stacked, gen_out
+
+    return multi_step
+
+
+def set_epoch(state: TrainState, epoch: int) -> TrainState:
+    """The state at ``epoch`` (it drives the StepLR schedule)."""
+    return state.replace(epoch=int(epoch))

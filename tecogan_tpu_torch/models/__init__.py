@@ -1,5 +1,7 @@
-"""Generator and its layers (NCHW channels_last inside, NHWC outside)."""
+"""Generator, discriminator and their layers (NCHW channels_last inside,
+NHWC outside)."""
 
+from .discriminator import Discriminator
 from .generator import Generator
 
-__all__ = ["Generator"]
+__all__ = ["Discriminator", "Generator"]

@@ -1,23 +1,51 @@
 """Layer building blocks (tecogan_tpu/models/layers.py).
 
-These run on NCHW tensors; the generator keeps them in
+These run on NCHW tensors; the models keep them in
 ``torch.channels_last`` so cuDNN reads and writes NHWC memory.
+
+Weights held in another dtype than the input are cast to the input's
+dtype at use, as the JAX layers cast their float32 params to the compute
+dtype: the training path holds float32 params and computes in bf16.  The
+serving generator holds its weights in the compute dtype, where the cast
+is a no-op.  The bias goes through ``F.conv2d``, whose cuDNN path adds it
+after the conv in the output dtype, as the JAX layers add it.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+def conv_memory_format(device: torch.device) -> torch.memory_format:
+    """The layout the training path runs its convs in: channels_last on
+    the card, for cuDNN's NHWC kernels; NCHW on the CPU, where oneDNN's
+    channels_last backward of the discriminator's 4x4 stride-2 convs loses
+    f32 precision (its conv_in / block1 grads sit 1.3e-3 of the leaf's
+    largest element off a float64 run, 7e-6 in NCHW)."""
+    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
+
+
+def _cast(p, dtype: torch.dtype):
+    return None if p is None else p.to(dtype)
+
+
 class Conv(nn.Conv2d):
-    """3x3 cross-correlation, stride 1, padding 1 (the reference conv2)."""
+    """kxk cross-correlation, padding (k-1)//2 (the reference conv2):
+    3x3 stride 1 in the generator, 4x4 stride 2 in the discriminator."""
 
     def __init__(self, in_ch: int, out_ch: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_ch, out_ch, 3, stride=1, padding=1, bias=bias,
-                         dtype=dtype)
+                 dtype: torch.dtype = torch.float32, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=(kernel - 1) // 2, bias=bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
 
 
 class ConvTranspose2x(nn.ConvTranspose2d):
@@ -28,6 +56,11 @@ class ConvTranspose2x(nn.ConvTranspose2d):
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_ch, out_ch, 3, stride=2, padding=1,
                          output_padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype), stride=2,
+                                  padding=1, output_padding=1)
 
 
 class ResidualBlock(nn.Module):
@@ -42,3 +75,48 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Conv_1(F.relu(self.Conv_0(x)))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d(eps=1e-3) in train mode with flax's arithmetic
+    (``flax.linen.BatchNorm``, tecogan_tpu/models/layers.py:171-186):
+    the batch mean and the biased variance ``E[x^2] - E[x]^2`` (clipped at
+    0) in float32 over (N, H, W), ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in float32, the result in the input's dtype.
+
+    It holds no running statistics.  ``forward`` records the batch's
+    (detached) mean and variance into ``stats`` under ``name + '.mean'`` /
+    ``'.var'``; the caller folds them into its running averages
+    (``0.9 * old + 0.1 * batch``, engine/losses.py) or leaves them, as the
+    generator objective does."""
+
+    EPS = 1e-3
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, stats: Dict[str, torch.Tensor],
+                name: str) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.EPS) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        stats[f"{name}.mean"] = mean.detach()
+        stats[f"{name}.var"] = var.detach()
+        return y.to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """Linear layer; ``weight`` is (out, in), the flax kernel transposed.
+    The bias is added after the product in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
+    """LeakyReLU(0.2) (reference ops.py:71-72)."""
+    return F.leaky_relu(x, negative_slope=alpha)

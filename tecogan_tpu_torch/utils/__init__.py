@@ -1,2 +1,2 @@
-"""Checkpoint loading, the JAX -> torch weight bridge, FLOP accounting and
-GPU timing."""
+"""Checkpoints, the weight bridge between flax trees and state_dicts, FLOP
+accounting and GPU timing."""

@@ -1,17 +1,33 @@
-"""jax-free reader of the ``.ckpt`` checkpoint format.
+"""jax-free reader and writer of the ``.ckpt`` checkpoint format.
 
 A ``.ckpt`` file (tecogan_tpu/utils/checkpoint.py) is an ``np.savez``
 archive of a flattened pytree: each leaf's path is joined with ``//`` and
 metadata leaves carry the ``__meta__`` prefix.  Both
 ``save_train_state``'s ``generator.ckpt`` and ``save_generator_params``
 store the generator's flax params under ``model_state_dict``.
+
+A training checkpoint is a pair of files, written as the JAX package
+writes them, so that a checkpoint of either package resumes in the other:
+``generator.ckpt`` holds ``model_state_dict`` (G's flax params) and
+``optimizer_state_dict`` (optax's ``inject_hyperparams(adam)`` state in
+its flattened layout: ``count``, ``hyperparams//learning_rate``,
+``inner_state//#0//{count,mu,nu}``) with ``__meta__`` epoch and step;
+``discrim.ckpt`` holds D's params, its optimizer state and
+``batch_stats``, with ``__meta__`` epoch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
+
+from .convert import (discriminator_params_to_jax,
+                      discriminator_state_dict_from_jax,
+                      generator_params_to_jax, generator_state_dict_from_jax)
 
 _SEP = "//"
 _META = "__meta__"
@@ -45,9 +61,144 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 def load_generator_params(path: str) -> Dict[str, Any]:
     """The generator's numpy params tree (flax layout) stored under
     ``model_state_dict``; optimizer state and metadata are ignored."""
-    flat, _ = load_flat(path)
-    prefix = "model_state_dict" + _SEP
-    params = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    params = _sub(load_flat(path)[0], "model_state_dict")
     if not params:
         raise KeyError(f"{path} holds no model_state_dict leaves")
-    return unflatten(params)
+    return params
+
+
+def _sub(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """The subtree under ``prefix`` of a flat checkpoint, nested."""
+    prefix += _SEP
+    return unflatten({k[len(prefix):]: v for k, v in flat.items()
+                      if k.startswith(prefix)})
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+        else:
+            flat[f"{prefix}{k}"] = np.asarray(v)
+    return flat
+
+
+def write_pytree_tmp(path: str, tree: Mapping[str, Any],
+                     meta: Optional[Dict[str, Any]] = None) -> str:
+    """Serialize a nested dict of arrays to ``path + '.tmp.npz'`` without
+    publishing it; the caller renames.  Lets a checkpoint pair commit all
+    or nothing."""
+    flat = _flatten(tree)
+    for k, v in (meta or {}).items():
+        flat[f"{_META}{k}"] = np.asarray(v)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    return tmp
+
+
+def save_pytree(path: str, tree: Mapping[str, Any],
+                meta: Optional[Dict[str, Any]] = None) -> None:
+    os.replace(write_pytree_tmp(path, tree, meta), path)
+
+
+def generator_ckpt_path(output_dir: str) -> str:
+    return os.path.join(output_dir, "generator.ckpt")
+
+
+def discriminator_ckpt_path(output_dir: str) -> str:
+    return os.path.join(output_dir, "discrim.ckpt")
+
+
+def has_checkpoint(output_dir: str) -> bool:
+    """True when both files of a checkpoint pair exist."""
+    return (os.path.exists(generator_ckpt_path(output_dir))
+            and os.path.exists(discriminator_ckpt_path(output_dir)))
+
+
+def _opt_tree(opt, to_jax) -> Dict[str, Any]:
+    """An ``engine.state.AdamState`` in optax's flattened layout."""
+    count = np.asarray(opt.count, np.int32)
+    return {"count": count,
+            "hyperparams": {"learning_rate": np.asarray(opt.learning_rate, np.float32)},
+            "inner_state": {"#0": {"count": count, "mu": to_jax(opt.mu),
+                                   "nu": to_jax(opt.nu)}}}
+
+
+def save_train_state(output_dir: str, state, epoch: int) -> None:
+    """Write the generator / discriminator checkpoint pair of an
+    ``engine.state.TrainState``: both files to tmp names first, then both
+    renamed, so a crash never publishes a new G beside a stale D."""
+    g_tmp = write_pytree_tmp(
+        generator_ckpt_path(output_dir),
+        {"model_state_dict": generator_params_to_jax(state.params_g),
+         "optimizer_state_dict": _opt_tree(state.opt_g, generator_params_to_jax)},
+        meta={"epoch": epoch, "step": int(state.step)})
+    params_d, stats_d = discriminator_params_to_jax(state.params_d,
+                                                    state.batch_stats_d)
+    d_tmp = write_pytree_tmp(
+        discriminator_ckpt_path(output_dir),
+        {"model_state_dict": params_d,
+         "optimizer_state_dict": _opt_tree(
+             state.opt_d, lambda sd: discriminator_params_to_jax(sd, {})[0]),
+         "batch_stats": stats_d},
+        meta={"epoch": epoch})
+    os.replace(g_tmp, generator_ckpt_path(output_dir))
+    os.replace(d_tmp, discriminator_ckpt_path(output_dir))
+
+
+def _like(loaded: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor],
+          what: str) -> Dict[str, torch.Tensor]:
+    """``loaded`` on the template's device and in its memory format,
+    checked key by key and shape by shape against it."""
+    out = {}
+    for k, t in template.items():
+        if k not in loaded:
+            raise KeyError(f"checkpoint missing leaf {what}:{k!r}")
+        v = loaded[k]
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {what}:{k!r}: ckpt "
+                             f"{tuple(v.shape)} vs model {tuple(t.shape)}")
+        fmt = (torch.channels_last if t.dim() == 4
+               and t.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        out[k] = v.to(t.device, t.dtype, memory_format=fmt)
+    return out
+
+
+def _load_opt(tree: Dict[str, Any], template, from_jax, what: str):
+    inner = tree["inner_state"]["#0"]
+    return dataclasses.replace(
+        template, count=int(inner["count"]),
+        mu=_like(from_jax(inner["mu"]), template.mu, what + "/mu"),
+        nu=_like(from_jax(inner["nu"]), template.nu, what + "/nu"),
+        learning_rate=float(np.float32(tree["hyperparams"]["learning_rate"])))
+
+
+def load_train_state(output_dir: str, state, g_path: Optional[str] = None,
+                     d_path: Optional[str] = None):
+    """Returns ``(state, epoch)``: ``state`` (an ``engine.state.TrainState``
+    used as the template for keys, shapes and device) with everything
+    restored from the checkpoint pair.  Raises on a missing leaf, a shape
+    mismatch or a torn pair (the two files at different epochs)."""
+    g_flat, g_meta = load_flat(g_path or generator_ckpt_path(output_dir))
+    d_flat, d_meta = load_flat(d_path or discriminator_ckpt_path(output_dir))
+    g_epoch = int(g_meta.get("epoch", 0))
+    if "epoch" in d_meta and int(d_meta["epoch"]) != g_epoch:
+        raise ValueError(f"torn checkpoint pair: generator epoch {g_epoch} != "
+                         f"discriminator epoch {int(d_meta['epoch'])} in {output_dir}")
+    params_d, stats_d = discriminator_state_dict_from_jax(
+        _sub(d_flat, "model_state_dict"), _sub(d_flat, "batch_stats"))
+    new_state = state.replace(
+        params_g=_like(generator_state_dict_from_jax(_sub(g_flat, "model_state_dict")),
+                       state.params_g, "generator"),
+        opt_g=_load_opt(_sub(g_flat, "optimizer_state_dict"), state.opt_g,
+                        generator_state_dict_from_jax, "generator optimizer"),
+        params_d=_like(params_d, state.params_d, "discriminator"),
+        batch_stats_d=_like(stats_d, state.batch_stats_d, "batch_stats"),
+        opt_d=_load_opt(_sub(d_flat, "optimizer_state_dict"), state.opt_d,
+                        lambda t: discriminator_state_dict_from_jax(t, {})[0],
+                        "discriminator optimizer"),
+        step=int(g_meta.get("step", 0)), epoch=g_epoch)
+    return new_state, g_epoch

@@ -10,12 +10,19 @@ import pytest
 import torch
 
 from tecogan_tpu_torch.config import TecoConfig
+from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
 from tecogan_tpu_torch.engine.inference import (build_clip_inference,
                                                 build_stream_inference)
-from tecogan_tpu_torch.engine.state import init_generator, model_defs
+from tecogan_tpu_torch.engine.losses import discriminator_loss
+from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
+                                            model_defs, state_from_params,
+                                            train_model_defs)
+from tecogan_tpu_torch.engine.train import build_train_step
+from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
 from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
-from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
+from tecogan_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
+                                             generator_state_dict_from_jax)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +37,11 @@ WARP_MAX_ERR, WARP_MEAN_ERR = 4e-3, 1e-3
 # warp (at torch's default init scale it barely does).
 KERNEL_GAIN = 2.5
 CLIP_RANGE = 0.3
+# training on the card against the CPU, fp32 with TF32 off: the two differ
+# in summation order only (chip_smoke.py phase 10's bar)
+TRAIN_RTOL = 1e-4
+TINY_TRAIN = TecoConfig(crop_size=8, RNN_N=9, num_resblock=2, discrim_resblocks=1,
+                        discrim_channels=16, batch_size=2, precision="fp32")
 
 
 @pytest.fixture
@@ -185,3 +197,89 @@ def test_stream_equals_clip_on_the_card(cuda, bug_parity):
         torch.backends.cudnn.deterministic = False
     assert counts == ((0, 0) if bug_parity else (6, 5))
     assert torch.equal(torch.stack(frames, dim=1), want)
+
+
+def _train_weights(cfg, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return init_generator(cfg, g), *init_discriminator(cfg, g)
+
+
+def _train_batches(cfg, n):
+    out = []
+    for i in range(n):
+        lr, hr = synthetic_scene_batch(cfg.batch_size, cfg.RNN_N, cfg.crop_size, seed=2 * i)
+        out.append((torch.from_numpy(lr), torch.from_numpy(hr)))
+    return out
+
+
+@pytest.mark.parametrize("bug_parity", [True, False])
+def test_train_steps_on_the_card_match_the_cpu(cuda, bug_parity):
+    """Three tiny fp32 steps on the card and on the CPU from the same
+    weights and batches: gen_loss each step, d_loss at step 0."""
+    cfg = TINY_TRAIN.replace(bug_parity=bug_parity)
+    weights = _train_weights(cfg)
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_params(cfg, *weights, device=dev)
+        step = build_train_step(cfg, device=dev)
+        losses[dev.type] = []
+        for lr, hr in _train_batches(cfg, 3):
+            state, metrics, _ = step(state, lr, hr)
+            losses[dev.type].append((float(metrics["gen_loss"]), float(metrics["d_loss"])))
+        assert state.step == 3
+    for (gg, gd), (cg, cd) in zip(losses["cuda"], losses["cpu"]):
+        assert abs(gg - cg) <= TRAIN_RTOL * abs(cg)
+    assert abs(losses["cuda"][0][1] - losses["cpu"][0][1]) <= TRAIN_RTOL * losses["cpu"][0][1]
+
+
+def test_discriminator_on_the_card_matches_the_cpu(cuda):
+    """D's score, maps and the BN running statistics after
+    discriminator_loss, fp32 on the card against the CPU, with the bars
+    the CPU holds against flax."""
+    cfg = TINY_TRAIN
+    _, params, stats = _train_weights(cfg, seed=1)
+    rng = np.random.default_rng(3)
+    real = torch.from_numpy(rng.standard_normal((2, 27, 32, 32)).astype(np.float32))
+    fake = torch.from_numpy(rng.standard_normal((2, 27, 32, 32)).astype(np.float32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        disc = train_model_defs(cfg, device=dev)[1]
+        pd, sd = discriminator_state_dict_from_jax(params, stats)
+        pd = {k: v.to(dev) for k, v in pd.items()}
+        sd = {k: v.to(dev) for k, v in sd.items()}
+        disc.load_state_dict(pd)
+        with torch.no_grad():
+            score, layers, _ = disc(real.permute(0, 2, 3, 1).to(dev))
+            loss, new = discriminator_loss(disc, pd, sd, real.to(dev), fake.to(dev), cfg)
+        out[dev.type] = (score.cpu(), [x.cpu() for x in layers], float(loss),
+                         {k: v.cpu() for k, v in new.items()})
+    (s_g, l_g, loss_g, st_g), (s_c, l_c, loss_c, st_c) = out["cuda"], out["cpu"]
+    assert float((s_g - s_c).abs().max()) <= 1e-5
+    for a, b in zip(l_g, l_c):
+        assert float((a - b).abs().max()) <= 2e-5
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k in st_c:
+        assert float((st_g[k] - st_c[k]).abs().max()) <= 1e-6, k
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 training state on the card, two steps in, saved and loaded
+    into a fresh state: every tensor bit-equal, counts, step and epoch."""
+    cfg = TINY_TRAIN.replace(precision="bf16")
+    state = state_from_params(cfg, *_train_weights(cfg), device=cuda)
+    step = build_train_step(cfg, device=cuda)
+    for lr, hr in _train_batches(cfg, 2):
+        state, _, _ = step(state, lr, hr)
+    save_train_state(str(tmp_path), state, epoch=4)
+    template = state_from_params(cfg, *_train_weights(cfg, seed=5), device=cuda)
+    loaded, epoch = load_train_state(str(tmp_path), template)
+    assert (epoch, loaded.epoch, loaded.step) == (4, 4, 2)
+    for a, b in ((state.params_g, loaded.params_g), (state.params_d, loaded.params_d),
+                 (state.batch_stats_d, loaded.batch_stats_d),
+                 (state.opt_g.mu, loaded.opt_g.mu), (state.opt_g.nu, loaded.opt_g.nu),
+                 (state.opt_d.mu, loaded.opt_d.mu), (state.opt_d.nu, loaded.opt_d.nu)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert b[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
+    assert (loaded.opt_g.count, loaded.opt_d.count) == (2, 2)
+    assert loaded.opt_d.learning_rate == state.opt_d.learning_rate

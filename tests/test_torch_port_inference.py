@@ -173,7 +173,8 @@ def test_nhwc_fused_route_is_refused():
 
 def test_port_runs_without_jax():
     """The port imports neither jax nor anything of the JAX package
-    ``tecogan_tpu``: run the slice in a fresh interpreter."""
+    ``tecogan_tpu``: run the serving and training slices in a fresh
+    interpreter."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -198,6 +199,24 @@ def test_port_runs_without_jax():
         state, frame = step_fn(model, init_fn((1, 4, 8, 3), device="cpu"), clip[:, 0])
         assert torch.equal(frame, out[:, 0])
         assert generator_macs_per_frame(4, 8, 1) > 0
+        import tempfile
+        from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+        from tecogan_tpu_torch.engine.state import init_state
+        from tecogan_tpu_torch.engine.train import build_train_step
+        from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+        from tecogan_tpu_torch.utils.flops import train_step_macs
+        import tecogan_tpu_torch.tools.profile_train
+        tcfg = cfg.replace(crop_size=8, RNN_N=3, discrim_resblocks=1,
+                           discrim_channels=8, batch_size=1)
+        ts = init_state(tcfg, torch.Generator().manual_seed(0), device="cpu")
+        lr, hr = synthetic_scene_batch(1, 3, 8)
+        ts, m, _ = build_train_step(tcfg, device="cpu")(
+            ts, torch.from_numpy(lr), torch.from_numpy(hr))
+        assert ts.step == 1 and bool(torch.isfinite(m["gen_loss"])), m
+        with tempfile.TemporaryDirectory() as d:
+            save_train_state(d, ts, epoch=1)
+            assert load_train_state(d, ts)[0].step == 1
+        assert train_step_macs(1, 3, 8, 1, 1, 8) > 0
         bad = sorted(m for m in sys.modules if m in ("jax", "flax", "tecogan_tpu")
                      or m.startswith(("jax.", "flax.", "tecogan_tpu.")))
         assert not bad, bad

@@ -48,7 +48,9 @@ paper's config.  Phases:
    ``train_step_macs``, peak device memory;
 10. the card against the CPU: 3 steps at the tiny config in fp32 (TF32
    off) from the same weights and batches, ``gen_loss`` within 1e-4
-   relative each step and ``d_loss`` at step 0; then bf16 against fp32 on
+   relative each step and ``d_loss`` at step 0; after step 0 every leaf
+   of the state: BN statistics and params within 1e-6, Adam's moments
+   within 1e-4 of each leaf's largest element; then bf16 against fp32 on
    the card at full width, step 0's ``gen_loss`` and ``d_loss`` within
    2e-2 relative (about five bf16 unit roundoffs, 2**-8 each);
 11. checkpoint resume on the card: the full-width state after step 2
@@ -99,6 +101,7 @@ FRAME_BUDGET_MS = 1e3 / 30           # a 30 fps live stream
 MEMORY_SLACK = 1.05
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 CARD_CPU_RTOL = 1e-4                 # fp32, TF32 off: summation order only
+LEAF_TOL = 1e-6                      # BN statistics and params after a step
 BF16_RTOL = 2e-2                     # ~5 bf16 unit roundoffs (2**-8)
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_BF16_FLOPS = 989e12             # dense tensor cores, data sheet
@@ -154,6 +157,39 @@ def warp_work(carry: torch.Tensor, prev_lr: torch.Tensor) -> tuple:
 
 def rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
+
+
+def state_leaves_apart(got, want) -> dict:
+    """How far a training state on the card lies from the CPU's after one
+    step, leaf by leaf: BN statistics and params in absolute terms, Adam's
+    moments relative to each leaf's largest element.  Adam's first step
+    is about sign(g) * lr, so params whose gradient element lies within
+    the moments' bar of 0 may step the other way: those are left out of
+    ``params``, held to 2 lr, and may be a few per thousand of a leaf."""
+    out = {"stats": 0.0, "moments": 0.0, "params": 0.0, "excused": 0, "excused_ok": True,
+           "n": len(want.batch_stats_d)}
+    for k, b in want.batch_stats_d.items():
+        out["stats"] = max(out["stats"], float((got.batch_stats_d[k].cpu() - b).abs().max()))
+    for side in ("g", "d"):
+        og, ow = getattr(got, f"opt_{side}"), getattr(want, f"opt_{side}")
+        out["excused_ok"] &= og.count == ow.count and og.learning_rate == ow.learning_rate
+        for name in ("mu", "nu"):
+            for k, b in getattr(ow, name).items():
+                d = float((getattr(og, name)[k].cpu() - b).abs().max())
+                out["moments"] = max(out["moments"], d / max(float(b.abs().max()), 1e-30))
+                out["n"] += 1
+        for k, b in getattr(want, f"params_{side}").items():
+            diff = (getattr(got, f"params_{side}")[k].cpu() - b).abs()
+            mu = ow.mu[k].abs()
+            free = mu <= CARD_CPU_RTOL * mu.max()
+            out["params"] = max(out["params"], float(torch.where(free, 0.0, diff).max()))
+            excused = int((free & (diff > LEAF_TOL)).sum())
+            out["excused"] += excused
+            out["excused_ok"] &= (float(torch.where(free, diff, 0.0).max())
+                                  <= 2.0001 * ow.learning_rate
+                                  and excused <= max(2, 3e-3 * diff.numel()))
+            out["n"] += 1
+    return out
 
 
 def train_phases(dev: torch.device, smi: str) -> None:
@@ -231,7 +267,7 @@ def train_phases(dev: torch.device, smi: str) -> None:
                       discrim_channels=16, batch_size=2, precision="fp32")
     w_tiny = weights(tiny, 1)
     tiny_batches = batches(tiny, 3, "cpu")
-    runs = {}
+    runs, first = {}, {}
     for where in (dev, torch.device("cpu")):
         state = state_from_params(tiny, *w_tiny, device=where)
         step = build_train_step(tiny, device=where)
@@ -239,11 +275,16 @@ def train_phases(dev: torch.device, smi: str) -> None:
         for lr, hr in tiny_batches:
             state, metrics, _ = step(state, lr.to(where), hr.to(where))
             runs[where.type].append((float(metrics["gen_loss"]), float(metrics["d_loss"])))
+            first.setdefault(where.type, state)
     for i, ((gg, gd), (cg, cd)) in enumerate(zip(runs["cuda"], runs["cpu"])):
         require(rel(gg, cg) <= CARD_CPU_RTOL, f"[10] gen_loss step {i}: card {gg} cpu {cg}")
     require(rel(runs["cuda"][0][1], runs["cpu"][0][1]) <= CARD_CPU_RTOL,
             f"[10] d_loss step 0: card {runs['cuda'][0][1]} cpu {runs['cpu'][0][1]}")
     worst_g = max(rel(a[0], b[0]) for a, b in zip(runs["cuda"], runs["cpu"]))
+    leaves = state_leaves_apart(first["cuda"], first["cpu"])
+    require(leaves["stats"] <= LEAF_TOL and leaves["moments"] <= CARD_CPU_RTOL
+            and leaves["params"] <= LEAF_TOL and leaves["excused_ok"],
+            f"[10] the state after step 0 differs: {leaves}")
     lr, hr = full_batches[0]
     step0 = {}
     for prec in ("bf16", "fp32"):
@@ -252,7 +293,11 @@ def train_phases(dev: torch.device, smi: str) -> None:
         step0[prec] = (float(metrics["gen_loss"]), float(metrics["d_loss"]))
     bf_g, bf_d = rel(step0["bf16"][0], step0["fp32"][0]), rel(step0["bf16"][1], step0["fp32"][1])
     print(f"[10] card vs CPU, tiny fp32, 3 steps: gen_loss rel {worst_g:.3e} (worst), d_loss "
-          f"step 0 rel {rel(runs['cuda'][0][1], runs['cpu'][0][1]):.3e} (bar {CARD_CPU_RTOL}) | "
+          f"step 0 rel {rel(runs['cuda'][0][1], runs['cpu'][0][1]):.3e} (bar {CARD_CPU_RTOL}); "
+          f"after step 0, {leaves['n']} leaves: BN stats {leaves['stats']:.3e}, params "
+          f"{leaves['params']:.3e} (bar {LEAF_TOL}; {leaves['excused']} elements of near-zero "
+          f"gradient within 2 lr), Adam moments {leaves['moments']:.3e} of each leaf's largest "
+          f"(bar {CARD_CPU_RTOL}) | "
           f"full width bf16 vs fp32 step 0: gen_loss {step0['bf16'][0]:.6f} / "
           f"{step0['fp32'][0]:.6f} rel {bf_g:.3e}, d_loss {step0['bf16'][1]:.6f} / "
           f"{step0['fp32'][1]:.6f} rel {bf_d:.3e} (bar {BF16_RTOL})", flush=True)

@@ -6,8 +6,8 @@ Layout: the interfaces take the reference's logical NCHW clip shapes
 ``(B, T, 3, H, W)``, so the raw ``view`` reinterpretations the reference
 relies on are ``reshape``s in logical (C) order -- ``reshape`` copies
 when the memory is not contiguous, and nothing here calls ``view``.
-The models run NHWC at their interfaces (``models.layers.conv_memory_format``
-inside: channels_last on the card).
+The models run NHWC at their interfaces, their convs in the layout of
+the state's params (``engine.state.train_tensors``).
 
 ``cfg.bug_parity`` selects the reference's behaviour:
   * the generator input detached every frame -- no BPTT;
@@ -35,7 +35,6 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..config import TecoConfig
-from ..models.layers import conv_memory_format
 from ..ops.image import deprocess, preprocess
 from ..ops.resize import upscale_four
 from ..ops.warp import grid_sample
@@ -107,8 +106,7 @@ def generator_unroll(gen, params_g: Tensors, r_inputs: torch.Tensor,
     def apply_gen(inp):
         if cfg.bug_parity:
             inp = inp.detach()  # the reference cuts the recurrence
-        x = inp.contiguous(memory_format=conv_memory_format(inp.device))
-        x = x.permute(0, 2, 3, 1)
+        x = inp.permute(0, 2, 3, 1)
         return functional_call(gen, params_g, (x,)).permute(0, 3, 1, 2)
 
     def step_fn(prev_sr, frame, grid):
@@ -237,8 +235,7 @@ def apply_discriminator(disc, params_d: Tensors, batch_stats: Tensors,
     (score, layers, stats): ``stats`` is ``batch_stats`` advanced by this
     batch (``0.9 * old + 0.1 * batch``) when ``mutable``, else
     ``batch_stats`` as given."""
-    x = x_nchw.contiguous(memory_format=conv_memory_format(x_nchw.device))
-    x = x.permute(0, 2, 3, 1)
+    x = x_nchw.permute(0, 2, 3, 1)
     score, layers, batch = functional_call(disc, params_d, (x,))
     if not mutable:
         return score, layers, batch_stats

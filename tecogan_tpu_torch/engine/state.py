@@ -24,7 +24,6 @@ import torch
 
 from ..config import TecoConfig
 from ..models import Discriminator, Generator
-from ..models.layers import conv_memory_format
 from ..utils.convert import (discriminator_state_dict_from_jax,
                              generator_state_dict_from_jax)
 
@@ -59,17 +58,17 @@ def model_defs(cfg: TecoConfig, device=None) -> Generator:
 
 
 def train_model_defs(cfg: TecoConfig, device=None) -> Tuple[Generator, Discriminator]:
-    """The generator and the discriminator of the train step: float32
-    params, compute in ``cfg.precision``, the discriminator sized for
+    """The generator and the discriminator of the train step, computing in
+    ``cfg.precision``, the discriminator sized for
     :func:`engine.losses.d_input_spec`.  The train step runs them with the
-    state's params (``torch.func.functional_call``)."""
+    state's float32 params (``torch.func.functional_call``); their own
+    params are never read there."""
     from .losses import d_input_spec
 
     dtype = _compute_dtype(cfg)
     dev = resolve_device(device)
     d_ch, d_hw = d_input_spec(cfg)
-    gen = Generator(num_resblock=cfg.num_resblock, out_channels=3, dtype=dtype,
-                    param_dtype=torch.float32)
+    gen = Generator(num_resblock=cfg.num_resblock, out_channels=3, dtype=dtype)
     disc = Discriminator(resblocks=cfg.discrim_resblocks,
                          channels=cfg.discrim_channels, dtype=dtype,
                          in_channels=d_ch, in_size=d_hw)
@@ -275,10 +274,15 @@ class TrainState:
         return dataclasses.replace(self, **kw)
 
 
-def _on_device(sd: Tensors, dev: torch.device) -> Tensors:
-    """float32 tensors on ``dev``, 4-D ones in the layout the training
-    path's convs run in there (``models.layers.conv_memory_format``)."""
-    fmt = conv_memory_format(dev)
+def train_tensors(sd: Tensors, dev: torch.device) -> Tensors:
+    """``sd`` as training-state tensors: float32 on ``dev``, the 4-D conv
+    kernels in the layout the train step's convs then run in (a conv
+    follows its weight's layout).  That is channels_last on the card, for
+    cuDNN's NHWC kernels, and NCHW on the CPU, where oneDNN's
+    channels_last backward of the discriminator's 4x4 stride-2 convs loses
+    f32 precision (its conv_in / block1 grads sit 1.3e-3 of the leaf's
+    largest element off a float64 run, 7e-6 in NCHW)."""
+    fmt = torch.channels_last if dev.type == "cuda" else torch.contiguous_format
     return {k: v.to(dev, torch.float32,
                     memory_format=fmt if v.dim() == 4 else torch.preserve_format)
             for k, v in sd.items()}
@@ -291,9 +295,9 @@ def state_from_params(cfg: TecoConfig, params_g: Dict[str, Any],
     trees of weights, e.g. the JAX package's or ``init_generator``'s."""
     dev = resolve_device(device)
     opt_g, opt_d, _ = make_optimizers(cfg)
-    pg = _on_device(generator_state_dict_from_jax(params_g), dev)
+    pg = train_tensors(generator_state_dict_from_jax(params_g), dev)
     pd, sd = discriminator_state_dict_from_jax(params_d, batch_stats_d)
-    pd, sd = _on_device(pd, dev), _on_device(sd, dev)
+    pd, sd = train_tensors(pd, dev), train_tensors(sd, dev)
     return TrainState(params_g=pg, params_d=pd, batch_stats_d=sd,
                       opt_g=opt_g.init(pg, cfg.learning_rate),
                       opt_d=opt_d.init(pd, cfg.learning_rate), step=0, epoch=0)

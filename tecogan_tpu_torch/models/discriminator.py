@@ -18,7 +18,8 @@ Topology:
 The submodules carry the flax names (``conv_in``, ``block{k}.Conv_0`` /
 ``BatchNorm_0``, ``resids{k}.rb_{i}`` / ``bn_{i}``, ``fc``), so the weight
 bridge is a pure layout map.  Params are float32; ``dtype`` is the
-compute dtype.  The fc input size follows from ``in_size``, the input's
+compute dtype.  The train step runs the module with its state's params
+(``torch.func.functional_call``), in their layout.  The fc input size follows from ``in_size``, the input's
 spatial size (48 at 128x128), as the flax module infers it from the input.
 """
 
@@ -94,7 +95,6 @@ class Discriminator(nn.Module):
         for _ in range(5):
             side = _down(side)
         self.fc = Dense(3 * side * side, 1)
-        self.to(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> Tuple[
             torch.Tensor, List[torch.Tensor], Dict[str, torch.Tensor]]:

@@ -10,12 +10,11 @@ Topology (4x SR):
   -> conv3x3 128->64 + ReLU
   -> conv3x3 64->out + sigmoid
 
-``dtype`` is the compute dtype and ``param_dtype`` the dtype the
-weights are held in: serving holds them in the compute dtype (the JAX
-package casts its float32 params at use; a cast of every weight on every
-frame would cost the serving step time), training holds float32 params
-and the layers cast them at use.  ``out_dtype`` is the dtype of the
-sigmoid.  The public methods take and return NHWC tensors and run
+``dtype`` is the compute dtype (weights are held in it, as the JAX
+package casts its float32 params at use); ``out_dtype`` is the dtype of
+the sigmoid.  The train step runs the module with its state's float32
+params (``torch.func.functional_call``), which the layers cast at use.
+The public methods take and return NHWC tensors and run
 NCHW ``channels_last`` inside, so the permutes are free views.  The
 ``forward`` / ``tail`` / ``tail_features`` split is the JAX one: the
 fused route computes the first layer itself and swaps ``conv_out`` for
@@ -23,8 +22,6 @@ the s2d kernel.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -44,22 +41,20 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class Generator(nn.Module):
     def __init__(self, num_resblock: int = 16, out_channels: int = 3,
                  dtype: torch.dtype = torch.float32,
-                 out_dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 out_dtype: torch.dtype = torch.float32):
         super().__init__()
-        pdt = dtype if param_dtype is None else param_dtype
         self.num_resblock = num_resblock
         self.dtype = dtype
         self.out_dtype = out_dtype
-        self.conv_in = Conv(51, 64, dtype=pdt)
+        self.conv_in = Conv(51, 64, dtype=dtype)
         for i in range(num_resblock):
-            self.add_module(f"resblock_{i}", ResidualBlock(64, 64, dtype=pdt))
-        self.up1 = ConvTranspose2x(64, 64, dtype=pdt)
-        self.trunk_rb1 = ResidualBlock(64, 64, dtype=pdt)
-        self.trunk_rb2 = ResidualBlock(64, 128, dtype=pdt)
-        self.up2 = ConvTranspose2x(128, 128, dtype=pdt)
-        self.conv_hr = Conv(128, 64, dtype=pdt)
-        self.conv_out = Conv(64, out_channels, dtype=pdt)
+            self.add_module(f"resblock_{i}", ResidualBlock(64, 64, dtype=dtype))
+        self.up1 = ConvTranspose2x(64, 64, dtype=dtype)
+        self.trunk_rb1 = ResidualBlock(64, 64, dtype=dtype)
+        self.trunk_rb2 = ResidualBlock(64, 128, dtype=dtype)
+        self.up2 = ConvTranspose2x(128, 128, dtype=dtype)
+        self.conv_hr = Conv(128, 64, dtype=dtype)
+        self.conv_out = Conv(64, out_channels, dtype=dtype)
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Layer building blocks (tecogan_tpu/models/layers.py).
 
-These run on NCHW tensors; the models keep them in
-``torch.channels_last`` so cuDNN reads and writes NHWC memory.
+These run on NCHW tensors.  The serving generator keeps them in
+``torch.channels_last`` so cuDNN reads and writes NHWC memory; the train
+step runs in the layout of its state's params
+(``engine.state.train_tensors``).
 
 Weights held in another dtype than the input are cast to the input's
 dtype at use, as the JAX layers cast their float32 params to the compute
@@ -18,15 +20,6 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
-
-def conv_memory_format(device: torch.device) -> torch.memory_format:
-    """The layout the training path runs its convs in: channels_last on
-    the card, for cuDNN's NHWC kernels; NCHW on the CPU, where oneDNN's
-    channels_last backward of the discriminator's 4x4 stride-2 convs loses
-    f32 precision (its conv_in / block1 grads sit 1.3e-3 of the leaf's
-    largest element off a float64 run, 7e-6 in NCHW)."""
-    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
 
 
 def _cast(p, dtype: torch.dtype):

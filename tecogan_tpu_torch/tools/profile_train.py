@@ -21,7 +21,13 @@ bf16; random flax-layout weights from seed 0, batches from
   host time and its extent on the device timeline (first kernel start to
   last kernel end, gaps included).  Backward kernels are launched from
   autograd's own thread, outside the spans, so ``gen_backward`` shows
-  host time only and ``disc_step`` its forward's extent.
+  host time only and ``disc_step`` its forward's extent;
+* the host time that ``torch.func.functional_call`` adds to one call of
+  each model (the train step rebinds the state's params on every
+  generator frame and every discriminator pass): ``functional_call`` on
+  a copy of the model whose forward returns its input, less a plain call
+  of that copy, so that no kernel runs; beside it, the host time of one
+  real forward at a batch of one, where the host sets the time.
 
 Fails without a GPU; prints one line a measurement and writes them all as
 JSON to ``--out``.
@@ -39,12 +45,14 @@ import torch
 
 from ..config import TecoConfig
 from ..data.synthetic import synthetic_scene_batch
-from ..engine.state import init_state
+from ..engine.losses import d_input_spec
+from ..engine.state import init_state, train_model_defs
 from ..engine.train import build_train_step
 from ..utils.flops import train_mfu
 from ..utils.timing import card
 
 WARMUP, STEPS, TRACED, SEED = 3, 10, 3, 0
+REBIND_CALLS, REBIND_ROUNDS = 100, 5
 SPANS = ("gen_objective", "gen_backward", "disc_step", "adam")
 # (kind, substrings of the kernel name), first match wins
 KINDS = (
@@ -68,6 +76,47 @@ def kind_of(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return kind
     return "other"
+
+
+def _host_us(fn) -> float:
+    """Median over rounds of the wall time of one call, ``REBIND_CALLS``
+    calls back to back ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(REBIND_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(REBIND_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / REBIND_CALLS * 1e6)
+    return statistics.median(rounds)
+
+
+def rebind_cost(cfg: TecoConfig, state, dev: torch.device) -> dict:
+    """Host microseconds that ``functional_call``'s rebinding of the params
+    adds to a call, for each model, and what that makes a step: one
+    generator call a frame, four discriminator passes."""
+    from torch.func import functional_call
+
+    d_ch, d_hw = d_input_spec(cfg)
+    x_g = torch.rand((1, 8, 8, 51), device=dev)
+    x_d = torch.rand((1, d_hw, d_hw, d_ch), device=dev)
+    rec = {}
+    with torch.no_grad():
+        for i, (name, params, x) in enumerate((("generator", state.params_g, x_g),
+                                              ("discriminator", state.params_d, x_d))):
+            model = train_model_defs(cfg, device=dev)[i]
+            forward_us = _host_us(lambda: functional_call(model, params, (x,)))
+            model.forward = lambda inp: inp  # the same params, no kernels
+            rebound = _host_us(lambda: functional_call(model, params, (x,)))
+            plain = _host_us(lambda: model(x))
+            rec[name] = {"params": len(params), "forward_us": forward_us,
+                         "rebind_us": rebound - plain}
+    frames = cfg.RNN_N * (2 if cfg.pingpang else 1) - (1 if cfg.pingpang else 0)
+    rec["rebind_ms_per_step"] = (frames * rec["generator"]["rebind_us"]
+                                 + 4 * rec["discriminator"]["rebind_us"]) / 1e3
+    return rec
 
 
 def profile(cfg: TecoConfig, dev: torch.device, smi: str) -> dict:
@@ -152,6 +201,13 @@ def profile(cfg: TecoConfig, dev: torch.device, smi: str) -> dict:
               f"{v['device_extent_ms']} ms", flush=True)
     for k in rec["kernels"][:12]:
         print(f"  {k['ms_per_step']:9.3f} ms x{k['count']:<5d} {k['name'][:100]}", flush=True)
+    rec["rebind"] = rebind_cost(cfg, state, dev)
+    for name in ("generator", "discriminator"):
+        r = rec["rebind"][name]
+        print(f"  functional_call on the {name} ({r['params']} params): rebinding "
+              f"{r['rebind_us']:.1f} us a call; a forward at batch 1 "
+              f"{r['forward_us']:.1f} us", flush=True)
+    print(f"  rebinding a step: {rec['rebind']['rebind_ms_per_step']:.3f} ms", flush=True)
     return rec
 
 

@@ -149,37 +149,34 @@ def save_train_state(output_dir: str, state, epoch: int) -> None:
 
 
 def _like(loaded: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor],
-          what: str) -> Dict[str, torch.Tensor]:
-    """``loaded`` on the template's device and in its memory format,
-    checked key by key and shape by shape against it."""
-    out = {}
+          what: str, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """``loaded`` checked key by key and shape by shape against the
+    template, as training-state tensors on ``dev``."""
+    from ..engine.state import train_tensors
+
     for k, t in template.items():
         if k not in loaded:
             raise KeyError(f"checkpoint missing leaf {what}:{k!r}")
-        v = loaded[k]
-        if tuple(v.shape) != tuple(t.shape):
+        if tuple(loaded[k].shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {what}:{k!r}: ckpt "
-                             f"{tuple(v.shape)} vs model {tuple(t.shape)}")
-        fmt = (torch.channels_last if t.dim() == 4
-               and t.is_contiguous(memory_format=torch.channels_last)
-               else torch.contiguous_format)
-        out[k] = v.to(t.device, t.dtype, memory_format=fmt)
-    return out
+                             f"{tuple(loaded[k].shape)} vs model {tuple(t.shape)}")
+    return train_tensors({k: loaded[k] for k in template}, dev)
 
 
-def _load_opt(tree: Dict[str, Any], template, from_jax, what: str):
+def _load_opt(tree: Dict[str, Any], template, from_jax, what: str,
+              dev: torch.device):
     inner = tree["inner_state"]["#0"]
     return dataclasses.replace(
         template, count=int(inner["count"]),
-        mu=_like(from_jax(inner["mu"]), template.mu, what + "/mu"),
-        nu=_like(from_jax(inner["nu"]), template.nu, what + "/nu"),
+        mu=_like(from_jax(inner["mu"]), template.mu, what + "/mu", dev),
+        nu=_like(from_jax(inner["nu"]), template.nu, what + "/nu", dev),
         learning_rate=float(np.float32(tree["hyperparams"]["learning_rate"])))
 
 
 def load_train_state(output_dir: str, state, g_path: Optional[str] = None,
                      d_path: Optional[str] = None):
     """Returns ``(state, epoch)``: ``state`` (an ``engine.state.TrainState``
-    used as the template for keys, shapes and device) with everything
+    used as the template for keys, shapes and the device) with everything
     restored from the checkpoint pair.  Raises on a missing leaf, a shape
     mismatch or a torn pair (the two files at different epochs)."""
     g_flat, g_meta = load_flat(g_path or generator_ckpt_path(output_dir))
@@ -190,15 +187,16 @@ def load_train_state(output_dir: str, state, g_path: Optional[str] = None,
                          f"discriminator epoch {int(d_meta['epoch'])} in {output_dir}")
     params_d, stats_d = discriminator_state_dict_from_jax(
         _sub(d_flat, "model_state_dict"), _sub(d_flat, "batch_stats"))
+    dev = next(iter(state.params_g.values())).device
     new_state = state.replace(
         params_g=_like(generator_state_dict_from_jax(_sub(g_flat, "model_state_dict")),
-                       state.params_g, "generator"),
+                       state.params_g, "generator", dev),
         opt_g=_load_opt(_sub(g_flat, "optimizer_state_dict"), state.opt_g,
-                        generator_state_dict_from_jax, "generator optimizer"),
-        params_d=_like(params_d, state.params_d, "discriminator"),
-        batch_stats_d=_like(stats_d, state.batch_stats_d, "batch_stats"),
+                        generator_state_dict_from_jax, "generator optimizer", dev),
+        params_d=_like(params_d, state.params_d, "discriminator", dev),
+        batch_stats_d=_like(stats_d, state.batch_stats_d, "batch_stats", dev),
         opt_d=_load_opt(_sub(d_flat, "optimizer_state_dict"), state.opt_d,
                         lambda t: discriminator_state_dict_from_jax(t, {})[0],
-                        "discriminator optimizer"),
+                        "discriminator optimizer", dev),
         step=int(g_meta.get("step", 0)), epoch=g_epoch)
     return new_state, g_epoch

@@ -13,10 +13,10 @@ from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
 from tecogan_tpu_torch.engine.inference import (build_clip_inference,
                                                 build_stream_inference)
-from tecogan_tpu_torch.engine.losses import discriminator_loss
+from tecogan_tpu_torch.engine.losses import apply_discriminator, discriminator_loss
 from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
                                             model_defs, state_from_params,
-                                            train_model_defs)
+                                            train_model_defs, train_tensors)
 from tecogan_tpu_torch.engine.train import build_train_step
 from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
@@ -38,8 +38,16 @@ WARP_MAX_ERR, WARP_MEAN_ERR = 4e-3, 1e-3
 KERNEL_GAIN = 2.5
 CLIP_RANGE = 0.3
 # training on the card against the CPU, fp32 with TF32 off: the two differ
-# in summation order only (chip_smoke.py phase 10's bar)
+# in summation order only (chip_smoke.py phase 10's bar).  After a step,
+# the bars the CPU holds against JAX (tests/test_torch_port_train_step.py):
+# BN statistics and params 1e-6 abs, Adam's moments and D's grads 1e-4
+# of the leaf's largest element; Adam's first step is about sign(g) * lr,
+# so where a gradient element is within that disagreement of 0, its step
+# may go the other way: those (at most a few per thousand) are held to
+# the step's range, 2 * lr.
 TRAIN_RTOL = 1e-4
+PARAM_TOL = STATS_TOL = 1e-6
+MOMENT_RTOL = 1e-4
 TINY_TRAIN = TecoConfig(crop_size=8, RNN_N=9, num_resblock=2, discrim_resblocks=1,
                         discrim_channels=16, batch_size=2, precision="fp32")
 
@@ -212,13 +220,41 @@ def _train_batches(cfg, n):
     return out
 
 
+def _leaf_rel(a, b):
+    """max |a - b| over the largest |b|, a on the card, b on the CPU."""
+    return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _assert_states_close(got, want):
+    """Every leaf of a state on the card against the CPU's after one step."""
+    for k, b in want.batch_stats_d.items():
+        assert float((got.batch_stats_d[k].cpu() - b).abs().max()) <= STATS_TOL, k
+    for side in ("g", "d"):
+        opt_g, opt_w = getattr(got, f"opt_{side}"), getattr(want, f"opt_{side}")
+        assert opt_g.count == opt_w.count and opt_g.learning_rate == opt_w.learning_rate
+        for name in ("mu", "nu"):
+            for k, b in getattr(opt_w, name).items():
+                assert _leaf_rel(getattr(opt_g, name)[k], b) <= MOMENT_RTOL, (side, name, k)
+        lr = opt_w.learning_rate
+        for k, b in getattr(want, f"params_{side}").items():
+            diff = (getattr(got, f"params_{side}")[k].cpu() - b).abs()
+            mu = opt_w.mu[k].abs()
+            free = mu <= MOMENT_RTOL * mu.max()
+            assert float(torch.where(free, 0.0, diff).max()) <= PARAM_TOL, (side, k)
+            assert float(torch.where(free, diff, 0.0).max()) <= 2.0001 * lr, (side, k)
+            excused = int((free & (diff > PARAM_TOL)).sum())
+            assert excused <= max(2, 3e-3 * diff.numel()), (side, k, excused)
+
+
 @pytest.mark.parametrize("bug_parity", [True, False])
 def test_train_steps_on_the_card_match_the_cpu(cuda, bug_parity):
     """Three tiny fp32 steps on the card and on the CPU from the same
-    weights and batches: gen_loss each step, d_loss at step 0."""
+    weights and batches: gen_loss each step, d_loss at step 0, and after
+    step 0 every leaf of the state: G's and D's params, D's BN statistics
+    and both Adam states."""
     cfg = TINY_TRAIN.replace(bug_parity=bug_parity)
     weights = _train_weights(cfg)
-    losses = {}
+    losses, first = {}, {}
     for dev in (cuda, torch.device("cpu")):
         state = state_from_params(cfg, *weights, device=dev)
         step = build_train_step(cfg, device=dev)
@@ -226,40 +262,55 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, bug_parity):
         for lr, hr in _train_batches(cfg, 3):
             state, metrics, _ = step(state, lr, hr)
             losses[dev.type].append((float(metrics["gen_loss"]), float(metrics["d_loss"])))
+            first.setdefault(dev.type, state)
         assert state.step == 3
     for (gg, gd), (cg, cd) in zip(losses["cuda"], losses["cpu"]):
         assert abs(gg - cg) <= TRAIN_RTOL * abs(cg)
     assert abs(losses["cuda"][0][1] - losses["cpu"][0][1]) <= TRAIN_RTOL * losses["cpu"][0][1]
+    _assert_states_close(first["cuda"], first["cpu"])
 
 
 def test_discriminator_on_the_card_matches_the_cpu(cuda):
-    """D's score, maps and the BN running statistics after
-    discriminator_loss, fp32 on the card against the CPU, with the bars
-    the CPU holds against flax."""
+    """D's score, maps, the BN running statistics after
+    discriminator_loss and the loss's grads with respect to every D param,
+    fp32 on the card (its params channels_last, as the train step holds
+    them) against the CPU, with the bars the CPU holds against flax and
+    JAX.  The inputs are drawn as the train step's: values in [0, 1], a
+    batch of B * 3 triplets.  On zero-mean N(0, 1) inputs at batch 2 the
+    card's float32 grads sit up to 3e-2 of the leaf's largest element off
+    a float64 run, in either layout and with deterministic algorithms
+    too (the CPU's: 1e-6; that backward runs a non-fused Winograd weight
+    grad among cuDNN's kernels); on inputs like these, 3e-5
+    (``python -m tecogan_tpu_torch.tools.grad_precision``)."""
     cfg = TINY_TRAIN
     _, params, stats = _train_weights(cfg, seed=1)
     rng = np.random.default_rng(3)
-    real = torch.from_numpy(rng.standard_normal((2, 27, 32, 32)).astype(np.float32))
-    fake = torch.from_numpy(rng.standard_normal((2, 27, 32, 32)).astype(np.float32))
+    n = cfg.batch_size * 3
+    real = torch.from_numpy(rng.random((n, 27, 32, 32), np.float32))
+    fake = torch.from_numpy(rng.random((n, 27, 32, 32), np.float32))
     out = {}
     for dev in (cuda, torch.device("cpu")):
         disc = train_model_defs(cfg, device=dev)[1]
         pd, sd = discriminator_state_dict_from_jax(params, stats)
-        pd = {k: v.to(dev) for k, v in pd.items()}
-        sd = {k: v.to(dev) for k, v in sd.items()}
-        disc.load_state_dict(pd)
+        pd, sd = train_tensors(pd, dev), train_tensors(sd, dev)
         with torch.no_grad():
-            score, layers, _ = disc(real.permute(0, 2, 3, 1).to(dev))
-            loss, new = discriminator_loss(disc, pd, sd, real.to(dev), fake.to(dev), cfg)
-        out[dev.type] = (score.cpu(), [x.cpu() for x in layers], float(loss),
-                         {k: v.cpu() for k, v in new.items()})
-    (s_g, l_g, loss_g, st_g), (s_c, l_c, loss_c, st_c) = out["cuda"], out["cpu"]
+            score, layers, _ = apply_discriminator(disc, pd, sd, real.to(dev), mutable=False)
+        leaves = {k: v.requires_grad_() for k, v in pd.items()}
+        loss, new = discriminator_loss(disc, leaves, sd, real.to(dev), fake.to(dev), cfg)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        out[dev.type] = (score.cpu(), [x.cpu() for x in layers], float(loss.detach()),
+                         {k: v.cpu() for k, v in new.items()},
+                         {k: v.cpu() for k, v in grads.items()})
+    (s_g, l_g, loss_g, st_g, gr_g), (s_c, l_c, loss_c, st_c, gr_c) = out["cuda"], out["cpu"]
     assert float((s_g - s_c).abs().max()) <= 1e-5
     for a, b in zip(l_g, l_c):
         assert float((a - b).abs().max()) <= 2e-5
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
     for k in st_c:
-        assert float((st_g[k] - st_c[k]).abs().max()) <= 1e-6, k
+        assert float((st_g[k] - st_c[k]).abs().max()) <= STATS_TOL, k
+    assert gr_g.keys() == gr_c.keys()
+    for k in gr_c:
+        assert _leaf_rel(gr_g[k], gr_c[k]) <= MOMENT_RTOL, k
 
 
 def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):

@@ -205,6 +205,7 @@ def test_port_runs_without_jax():
         from tecogan_tpu_torch.engine.train import build_train_step
         from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
         from tecogan_tpu_torch.utils.flops import train_step_macs
+        import tecogan_tpu_torch.tools.grad_precision
         import tecogan_tpu_torch.tools.profile_train
         tcfg = cfg.replace(crop_size=8, RNN_N=3, discrim_resblocks=1,
                            discrim_channels=8, batch_size=1)

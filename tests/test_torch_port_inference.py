@@ -173,8 +173,8 @@ def test_nhwc_fused_route_is_refused():
 
 def test_port_runs_without_jax():
     """The port imports neither jax nor anything of the JAX package
-    ``tecogan_tpu``: run the serving and training slices in a fresh
-    interpreter."""
+    ``tecogan_tpu``: run the serving slice (the int8 mode included) and the
+    training slice in a fresh interpreter."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -189,8 +189,8 @@ def test_port_runs_without_jax():
         import tecogan_tpu_torch.utils.checkpoint
         cfg = TecoConfig(num_resblock=1, precision="fp32", bug_parity=False)
         model = model_defs(cfg, device="cpu")
-        model.load_state_dict(generator_state_dict_from_jax(
-            init_generator(cfg, torch.Generator().manual_seed(0))))
+        params = init_generator(cfg, torch.Generator().manual_seed(0))
+        model.load_state_dict(generator_state_dict_from_jax(params))
         clip = torch.rand((1, 3, 4, 8, 3), generator=torch.Generator().manual_seed(1))
         out = build_clip_inference(cfg)(model, clip)
         assert tuple(out.shape) == (1, 3, 16, 32, 3), out.shape
@@ -199,6 +199,15 @@ def test_port_runs_without_jax():
         state, frame = step_fn(model, init_fn((1, 4, 8, 3), device="cpu"), clip[:, 0])
         assert torch.equal(frame, out[:, 0])
         assert generator_macs_per_frame(4, 8, 1) > 0
+        from tecogan_tpu_torch.engine.inference import build_quantized_clip_inference
+        from tecogan_tpu_torch.utils.flops import int8_tail_macs_per_frame
+        prepare, qinfer = build_quantized_clip_inference(cfg)
+        qtail = prepare(model, params, clip, frames=2)
+        assert all(q["wq"].dtype == torch.int8 for q in qtail.values())
+        qout = qinfer(model, qtail, clip)
+        assert qout.shape == out.shape and bool(torch.isfinite(qout).all())
+        assert torch.equal(build_chunked_inference(cfg)(model, clip, chunk=2, qtail=qtail), qout)
+        assert 0 < int8_tail_macs_per_frame(4, 8, 1) < generator_macs_per_frame(4, 8, 1)
         import tempfile
         from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
         from tecogan_tpu_torch.engine.state import init_state

@@ -60,10 +60,13 @@ paper's config.  Phases:
 12. int8 (W8A8) serving (``build_quantized_clip_inference``): each int8
    kernel (``int8_conv3x3``, ``int8_up2x``) against its plain version
    (float64 integer sums), bit for bit, at the main path's layer shapes,
-   LR 135 x 240 at B=2 and 37 x 53; at each main-path layer shape its
-   device time (a CUDA graph, as in 3) against its bound, and the bf16
-   cuDNN conv of the same shape as a labelled reference (not the same
-   function: PyTorch has no int8 conv); ``prepare`` on the full-width
+   LR 135 x 240 at B=2, 37 x 53 and the edges of the kernels' 2 x 64-pixel
+   tiles (W < 64, W = 64k + 1, H = 1, B = 3, Cin != Cout, a residual on
+   up2x); at each main-path layer shape its device time (a CUDA graph, as
+   in 3) against its bound, and two labelled yardsticks that are not the
+   same function (PyTorch has no int8 conv): the bf16 cuDNN conv of the
+   shape and ``torch._int_mm`` on its im2col GEMM alone (M = B H W,
+   K = 9 Cin, N = Cout, s8 x s8 -> s32); ``prepare`` on the full-width
    clip's 8 frames, then the int8 clip: launch counts of all four
    kernels, fps beside the bf16 route's in the same run, the tail's ms a
    frame against the bf16 trunk's, TOP/s and the share of 1979 TOP/s;
@@ -365,9 +368,15 @@ INT8_LAYERS = [("resblock Conv_0", False, (1, 270, 480, 64, 64), True, False, 16
                ("trunk_rb2/Conv_1", False, (1, 540, 960, 128, 128), False, False, 1),
                ("up2", True, (1, 540, 960, 128, 128), True, False, 1),
                ("conv_hr", False, (1, 1080, 1920, 128, 64), True, False, 1)]
-# further shapes the kernels are checked at: B=2 at LR 135 x 240, and odd H, W
+# further shapes the kernels are checked at: B=2 at LR 135 x 240, odd H and
+# W, and the edges of the 2 x 64-pixel tiles: W below 64, W = 64k + 1, W not
+# a multiple of 64, H = 1, B = 3, Cin != Cout both ways, a residual on up2x
 INT8_EXTRA = [(False, (2, 135, 240, 64, 64), True, True), (True, (2, 135, 240, 64, 64), True, False),
-              (False, (1, 37, 53, 128, 64), True, True), (True, (1, 37, 53, 128, 128), False, True)]
+              (False, (1, 37, 53, 128, 64), True, True), (True, (1, 37, 53, 128, 128), False, True),
+              (False, (1, 5, 40, 64, 64), True, True), (False, (2, 3, 129, 128, 128), False, True),
+              (False, (1, 1, 130, 128, 64), True, False), (False, (3, 7, 70, 64, 128), False, True),
+              (True, (1, 5, 40, 128, 64), True, True), (True, (2, 1, 65, 64, 128), False, True),
+              (True, (3, 4, 129, 64, 64), True, True), (True, (1, 3, 70, 128, 64), False, True)]
 PEAK_INT8_OPS = 1979e12              # dense tensor cores, data sheet
 INT8_VS_BF16_DB = 35.0               # tests/test_quant.py:105, the JAX package's bar
 INT8_CHUNK_T, INT8_CHUNK = 12, 5
@@ -399,7 +408,7 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
     from tecogan_tpu_torch.utils.flops import int8_tail_macs_per_frame
-    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms
+    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms, int_mm_ms
 
     recs = {up: {"name": "int8_up2x" if up else "int8_conv3x3", "route": "cuda",
                  "source": "tecogan_tpu_torch/csrc/int8_conv.cu",
@@ -440,6 +449,7 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
                 wt = wq.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
                 cudnn_ms = events_ms(lambda: F.conv2d(xc, wt, bias.bfloat16(), padding=1), 20)
             px = B * H * W
+            mm_ms = int_mm_ms(px, 9 * cin, cout, 10, dev)
             bytes_moved = (x.numel() + got.numel() * (2 if residual else 1)) * 2 + wq.numel() + cout * 8
             ops = 2 * 9 * cin * cout * px
             b_ms, b_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
@@ -450,8 +460,9 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
             rec["ops"] += n * ops
             line += (f" | {name} x{n} a frame: kernel {ms:.4f} ms (graph), bound {b_ms:.4f} ms "
                      f"({b_by}; {b_ms / ms:.1%}), {ops / ms / 1e9:.1f} TOP/s | plain {plain_ms:.3f} ms"
-                     f" | bf16 cuDNN {'conv_transpose2d' if up else 'conv2d'} + bias (reference, "
-                     f"not the same function) {cudnn_ms:.4f} ms | {smi}")
+                     f" | not the same function: bf16 cuDNN {'conv_transpose2d' if up else 'conv2d'}"
+                     f" + bias {cudnn_ms:.4f} ms, torch._int_mm s8 GEMM alone (M {px}, K {9 * cin},"
+                     f" N {cout}) {mm_ms:.4f} ms, {ops / mm_ms / 1e9:.1f} TOP/s | {smi}")
             del xc, wt
         print(line, flush=True)
         require(err == 0.0, f"[12] {recs[up]['name']} differs from its plain version at {shape}")

@@ -46,10 +46,11 @@ def first_frame(model: Generator, lr0: torch.Tensor) -> torch.Tensor:
 
 
 def _dequant_in(lr: torch.Tensor) -> torch.Tensor:
-    """uint8 input -> float32 [0,1] on the device; float input passes."""
+    """uint8 input -> float32 [0,1] on the device; float input of any
+    width -> float32, as JAX takes it (the warp kernel reads float32)."""
     if lr.dtype == torch.uint8:
         return transfer_dequantize_f32(lr)
-    return lr
+    return lr.float()
 
 
 class _Route(NamedTuple):

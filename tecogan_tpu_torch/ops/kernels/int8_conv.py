@@ -24,7 +24,10 @@ The plain versions do the integer conv in float64 as a sum of one matrix
 product a tap: every partial sum is an integer below 2**53, so it is exact
 whatever the order (float32 is not: at 128 -> 128 a sum reaches
 127**2 * 1152 > 2**24).  The kernels take ``x`` in bf16 and return bf16,
-bit-equal to the plain version.
+bit-equal to the plain version.  Each launch is one persistent block an SM
+that holds the layer's weights in shared memory and computes all Cout
+channels of its tiles with ``wgmma``; the source's header gives the design
+and its shared-memory budget for each (Cin, Cout).
 """
 
 from __future__ import annotations
@@ -166,9 +169,10 @@ def _check(x: torch.Tensor, inv_s: torch.Tensor, wq: torch.Tensor, deq: torch.Te
                                  or tuple(residual.shape) != out_shape):
         raise ValueError(f"residual must be {out_shape} bfloat16, got "
                          f"{tuple(residual.shape)} {residual.dtype}")
-    # x and wq are read in 16-byte pieces, the rest a value (or two) at a time
+    # x, wq and the residual are read in 16-byte pieces, the rest a value
+    # (or two) at a time
     for name, t, align in (("x", x, 16), ("wq", wq, 16), ("inv_s", inv_s, 4),
-                           ("deq", deq, 4), ("bias", bias, 4), ("residual", residual, 4)):
+                           ("deq", deq, 4), ("bias", bias, 4), ("residual", residual, 16)):
         if t is None:
             continue
         if t.device != x.device or not t.is_contiguous():

@@ -48,3 +48,14 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def int_mm_ms(m: int, k: int, n: int, reps: int, device) -> float:
+    """Device time of ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) on random
+    (m, k) x (k, n) int8 operands (``events_ms``): the yardstick of what
+    the library's int8 tensor-core GEMM reaches at an int8 conv layer's
+    im2col shape.  It computes no conv; the port never calls it."""
+    g = torch.Generator(device=device).manual_seed(7)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8).t()
+    return events_ms(lambda: torch._int_mm(a, b), reps)

@@ -20,7 +20,7 @@ from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
                                             train_model_defs, train_tensors)
 from tecogan_tpu_torch.engine.train import build_train_step
 from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
-from tecogan_tpu_torch.engine.quant import qtail_to, tail_features_int8
+from tecogan_tpu_torch.engine.quant import qtail_to, quantize_tail, tail_features_int8
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
 from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
 from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
@@ -228,16 +228,23 @@ def test_stream_equals_clip_on_the_card(cuda, bug_parity):
 
 # (B, H, W, Cin, Cout, relu, residual): the main path's 3x3 layers at
 # 270p -> 1080p (LR resblocks with ReLU and with the residual, the 540 x
-# 960 trunk, conv_hr at 1080p), LR 135 x 240 at B=2, and 37 x 53 with odd
-# H and W in both channel counts
+# 960 trunk, conv_hr at 1080p), LR 135 x 240 at B=2, 37 x 53 with odd H
+# and W in both channel counts, and the edges of the kernels' tiles of 2
+# rows x 64 columns: W below 64, W = 64k + 1, W not a multiple of 64,
+# H = 1, B = 3
 INT8_CONV_SHAPES = [(1, 270, 480, 64, 64, True, False), (1, 270, 480, 64, 64, False, True),
                     (2, 135, 240, 64, 64, True, True), (1, 37, 53, 64, 128, False, False),
                     (1, 37, 53, 128, 64, True, True), (1, 540, 960, 64, 64, True, False),
                     (1, 540, 960, 64, 128, True, False), (1, 540, 960, 128, 128, False, False),
-                    (1, 1080, 1920, 128, 64, True, False)]
-# up1, up2, and odd shapes in both channel counts
+                    (1, 1080, 1920, 128, 64, True, False), (1, 5, 40, 64, 64, True, True),
+                    (2, 3, 129, 128, 128, False, True), (1, 1, 130, 128, 64, True, False),
+                    (3, 7, 70, 64, 128, False, True)]
+# up1, up2, odd shapes in both channel counts, and the tile edges as
+# above, with Cin != Cout both ways and residuals
 INT8_UP_SHAPES = [(1, 270, 480, 64, 64, True, False), (1, 540, 960, 128, 128, True, False),
-                  (2, 37, 53, 64, 64, True, True), (1, 37, 53, 128, 128, False, False)]
+                  (2, 37, 53, 64, 64, True, True), (1, 37, 53, 128, 128, False, False),
+                  (1, 5, 40, 128, 64, True, True), (2, 1, 65, 64, 128, False, True),
+                  (3, 4, 129, 64, 64, True, True), (1, 3, 70, 128, 64, False, True)]
 
 
 @pytest.mark.parametrize("up,shape", [(False, s) for s in INT8_CONV_SHAPES]
@@ -273,6 +280,9 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         "CPU deq": (x, inv_s, wq, deq.cpu(), bias, False, None),
         "bf16 bias": (x, inv_s, wq, deq, bias.bfloat16(), False, None),
         "float32 residual": (x, inv_s, wq, deq, bias, False, res.float()),
+        "misaligned residual": (x, inv_s, wq, deq, bias, False,
+                                torch.empty(res.numel() + 8, dtype=res.dtype, device=cuda)
+                                [1:1 + res.numel()].view(res.shape)),
         "CPU x": (x.cpu(), inv_s, wq, deq, bias, False, None),
     }
     qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
@@ -332,6 +342,106 @@ def test_int8_clip_on_the_card_matches_the_cpu(cuda):
         card, quant_err = db(got[:, t], want[:, t]), db(want[:, t], want_bf16[:, t])
         print(f"frame {t}: card vs CPU {card:.2f} dB, CPU int8 vs bf16 {quant_err:.2f} dB")
         assert card >= max(35.0, quant_err - 3.0), t
+
+
+def _db(a, b):
+    mse = float(torch.mean((a.double() - b.double()) ** 2))
+    return 10 * np.log10(1.0 / max(mse, 1e-12))
+
+
+# the fp32 fused route on the card against the CPU, TF32 off: the convs sum
+# in another order, and a carry value on the other side of a rounding
+# boundary moves a step; the CPU's bar against JAX
+# (tests/test_torch_port_inference.py).  Measured 85-120 dB.
+FP32_FUSED_DB = 50.0
+
+
+def test_fp32_routes_on_the_card_match_the_cpu(cuda):
+    """The fused and the int8 route in fp32 on the card: by dtype,
+    conv_out_s2d and the int8 convs take their plain versions there (no
+    launch; the warp kernel still reads the bf16 carry), and every frame
+    matches the CPU's.  The bf16 route still launches all four kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TecoConfig(num_resblock=2, precision="fp32", bug_parity=False)
+    gpu_model, cpu_model, sd = _models(cuda, cfg)
+    T = 4
+    clip = torch.from_numpy(
+        np.random.default_rng(5).random((1, T, 12, 20, 3), np.float32) * CLIP_RANGE)
+
+    def counts():
+        return (qmod.conv3x3_launch_count, qmod.up2x_launch_count, kmod.launch_count,
+                wmod.launch_count)
+
+    def reset():
+        qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+        kmod.launch_count = wmod.launch_count = 0
+
+    infer = build_clip_inference(cfg)
+    reset()
+    got = infer(gpu_model, clip.to(cuda)).cpu()
+    assert counts() == (0, 0, 0, T - 1)
+    want = infer(cpu_model, clip)
+    fused_db = [_db(got[:, t], want[:, t]) for t in range(T)]
+
+    prepare, qinfer = build_quantized_clip_inference(cfg)
+    qtail = prepare(gpu_model, sd, clip, frames=T)
+    reset()
+    got = qinfer(gpu_model, qtail, clip.to(cuda)).cpu()
+    assert counts() == (0, 0, 0, T - 1)
+    want_int8 = qinfer(cpu_model, qtail_to(qtail, "cpu"), clip)
+    # as the bf16 int8 route (test_int8_clip_on_the_card_matches_the_cpu):
+    # a value across a quantizer's rounding boundary moves a whole step, so
+    # each frame sits within 3 dB of the CPU's int8-vs-fused distance and
+    # above 35 dB (measured 40.3-120 dB against a 42.1 dB distance)
+    int8_db = [_db(got[:, t], want_int8[:, t]) for t in range(T)]
+    quant_db = [_db(want_int8[:, t], want[:, t]) for t in range(T)]
+    print(f"fp32 card vs CPU: fused {[f'{d:.2f}' for d in fused_db]} dB, "
+          f"int8 {[f'{d:.2f}' for d in int8_db]} dB, CPU int8 vs fused "
+          f"{[f'{d:.2f}' for d in quant_db]} dB")
+    assert min(fused_db) > FP32_FUSED_DB
+    assert all(d >= max(35.0, qd - 3.0) for d, qd in zip(int8_db, quant_db))
+
+    bf16 = cfg.replace(precision="bf16")
+    bf16_model = model_defs(bf16, device=cuda)
+    bf16_model.load_state_dict(sd)
+    reset()
+    build_quantized_clip_inference(bf16)[1](bf16_model.eval(), qtail, clip.to(cuda))
+    assert counts() == (T * 9, T * 2, T, T - 1)
+
+
+def test_float64_clip_on_the_card_is_the_float32_clip(cuda):
+    """A float64 LR clip on the served route (bf16, kernels) is taken as
+    float32: bit-equal to the float32 clip (cuDNN held to deterministic
+    algorithms), where the warp kernel used to refuse it at frame 1."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    model, _, _ = _models(cuda, cfg)
+    clip = torch.from_numpy(
+        np.random.default_rng(6).random((1, 4, 9, 13, 3)) * CLIP_RANGE).to(cuda)
+    assert clip.dtype == torch.float64
+    torch.backends.cudnn.deterministic = True
+    try:
+        infer = build_clip_inference(cfg)
+        wmod.launch_count = 0
+        got = infer(model, clip)
+        assert wmod.launch_count == 3
+        want = infer(model, clip.float())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert torch.equal(got, want)
+
+
+def test_quantize_tail_follows_the_maxima_to_the_card(cuda):
+    """Without ``device``, the qtail lies where the maxima lie."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    _, _, sd = _models(cuda, cfg)
+    names = ([f"resblock_{i}/Conv_{j}" for i in range(2) for j in range(2)]
+             + ["up1", "trunk_rb1/Conv_0", "trunk_rb1/Conv_1", "trunk_rb2/Conv_0",
+                "trunk_rb2/Conv_1", "up2", "conv_hr"])
+    maxes = {n: torch.tensor(1.5, device=cuda) for n in names}
+    q = quantize_tail(sd, maxes)
+    assert list(q) == names
+    assert all(v.device.type == "cuda" for layer in q.values() for v in layer.values()
+               if v is not None)
 
 
 def _train_weights(cfg, seed=0):

@@ -22,7 +22,7 @@ from tecogan_tpu.ops.space import space_to_depth as j_space_to_depth
 from tecogan_tpu.utils.checkpoint import save_generator_params, save_pytree
 from tecogan_tpu_torch.config import TecoConfig
 from tecogan_tpu_torch.engine import fused
-from tecogan_tpu_torch.engine.inference import build_clip_inference
+from tecogan_tpu_torch.engine.inference import build_clip_inference, build_stream_inference
 from tecogan_tpu_torch.engine.state import init_generator, model_defs
 from tecogan_tpu_torch.utils.checkpoint import load_generator_params
 from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
@@ -163,6 +163,26 @@ def test_uint8_clip_is_dequantized_on_device(rng):
     got = infer(model, torch.from_numpy(q))
     want = infer(model, torch.from_numpy(q.astype(np.float32) * np.float32(1 / 255)))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bug_parity", [True, False])
+def test_float64_clip_is_the_float32_clip(rng, bug_parity):
+    """A float64 LR clip (numpy's default) is taken as float32, as JAX
+    takes it: the clip and the stream give the float32 clip's frames bit
+    for bit (on the card the warp kernel reads float32 prev_lr only)."""
+    cfg = CFG.replace(bug_parity=bug_parity)
+    model = _port_model(_params(), cfg)
+    clip = _clip(rng)
+    infer = build_clip_inference(cfg)
+    want = infer(model, torch.from_numpy(clip))
+    wide = torch.from_numpy(clip.astype(np.float64))
+    got = infer(model, wide)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    init_fn, step_fn = build_stream_inference(cfg)
+    state = init_fn(clip.shape[:1] + clip.shape[2:], device="cpu")
+    for t in range(clip.shape[1]):
+        state, frame = step_fn(model, state, wide[:, t])
+        assert torch.equal(frame, want[:, t]), t
 
 
 def test_nhwc_fused_route_is_refused():

@@ -95,6 +95,33 @@ def test_quantize_tail_matches_jax(rng, form):
             np.testing.assert_array_equal(g["bias"].numpy(), np.asarray(w["bias"]))
 
 
+def test_quantize_tail_names_a_missing_layer(rng):
+    """Every conv layer of the params' tail is quantized: maxima without
+    one raise a KeyError that names it, at quantize_tail, not later in
+    tail_features_int8."""
+    params = _params()
+    maxes = {k: torch.tensor(v) for k, v in _jax_maxes(params, rng).items()}
+    del maxes["trunk_rb2/Conv_1"]
+    with pytest.raises(KeyError, match="trunk_rb2/Conv_1"):
+        quant.quantize_tail(params, maxes)
+
+
+def test_quantize_tail_lies_on_the_maxima_device(rng, monkeypatch):
+    """Without ``device`` the qtail goes where the maxima lie (the model's
+    device, after calibrate_clip), not to a fixed device; with it, there."""
+    params = _params()
+    maxes = {k: torch.tensor(v) for k, v in _jax_maxes(params, rng).items()}
+    seen = []
+    real = quant.qtail_to
+    monkeypatch.setattr(quant, "qtail_to", lambda q, dev: seen.append(dev) or real(q, dev))
+    q = quant.quantize_tail(params, maxes)
+    assert seen == [maxes["up1"].device]
+    assert all(v.device == maxes["up1"].device for layer in q.values()
+               for v in layer.values() if v is not None)
+    quant.quantize_tail(params, maxes, device="cpu")
+    assert seen[-1] == "cpu"
+
+
 def test_qtail_from_jax_is_the_ports_qtail(rng):
     """A JAX qtail carried across equals the port's own from the same
     params and maxima, tensor for tensor."""
@@ -153,26 +180,116 @@ def test_integer_sums_match_jax(rng, cin, cout, dilated):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# The CUDA kernels' tiling (csrc/int8_conv.cu): tiles of TR rows x TW
+# columns of pixels, one m64 wgmma tile a row; the ring's stage and the
+# weights in shared memory as flat byte arrays in the canonical K-major
+# layout without swizzle, read through wgmma's matrix descriptors.
+TR, TW = 2, 64
+CORE_SBO = 128  # bytes between core matrices (8 rows x 16 bytes) along M or N
+# a grid small enough that the blocks' tile ranges end inside a column strip
+MODEL_BLOCKS = 3
+
+
+def _lbo_a(cin, up):
+    """Bytes between the stage's 16-byte K chunks: the staged rows x
+    columns of 16 bytes, rounded up to 128, plus 32 (Cin 64) or 16 (Cin 128)
+    bytes so that a pixel's chunks fall in distinct banks."""
+    ih, iw = (TR + 1, TW + 1) if up else (TR + 2, TW + 2)
+    return -(-ih * iw * 16 // 128) * 128 + (32 if cin == 64 else 16), ih, iw
+
+
+def _desc_offsets(rows, lbo):
+    """Byte offsets of a (rows x 32) s8 operand read through a descriptor
+    without swizzle: core matrices of 8 rows x 16 bytes, CORE_SBO apart
+    along the rows, ``lbo`` apart along K."""
+    m = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    return (m // 8) * CORE_SBO + (m % 8) * 16 + (k // 16) * lbo + k % 16
+
+
+def _quad_transpose(pieces):
+    """The epilogue's shuffles, lane by lane: ``pieces[q][k]`` is what lane
+    q of a quad holds of 8-channel block k (its 4-byte piece q).  Returns
+    what each lane holds after: ``out[q][p]``."""
+    out = [[pieces[q][q]] * 4 for q in range(4)]
+    for i in (1, 2, 3):
+        sent = [pieces[lane][(lane + i) % 4] for lane in range(4)]
+        for q in range(4):
+            src = (q - i) % 4
+            out[q][src] = sent[src]
+    return out
+
+
 def _kernel_model(xq, wq, up):
-    """The CUDA kernels' loops in numpy: pixel tiles of TH x TW with their
-    staged halo (zeros outside the image), the 3x3 taps at staged offset
-    (u, v) or, for up2x, the four output phases with their own taps at
-    offset (u == 2, v == 2), and the masked stores."""
-    TH, TW = 8, 16
-    B, H, W, C = xq.shape
+    """The kernels' loops in numpy, for a grid of MODEL_BLOCKS blocks: tile
+    ids running down each 64-column strip, a contiguous range of them a
+    block; the producer's stages (quantized zeros outside the image),
+    where a tile below the block's previous one copies the OV staged rows
+    it shares and stages only the TR new ones; each consumer row's wgmma
+    chain with the A descriptor's start moved by ((row + du) * IW + dv) *
+    16 bytes a tap and 2 * LBO_A a k32 step, B at (tap * CIN / 16 + 2 kk) *
+    COUT * 16; up2x's four phases with their own taps; the epilogue's
+    fragment -> quad transpose -> 16-byte stores, masked at the ragged
+    edges.  Every output element is written exactly once."""
+    B, H, W, cin = xq.shape
     cout = wq.shape[0]
+    kc_n = cin // 16
+    lbo_a, ih, iw = _lbo_a(cin, up)
+    lbo_b = cout * 16
     halo = 0 if up else 1
-    out = np.zeros((B, 2 * H if up else H, 2 * W if up else W, cout), np.int64)
-    padded = np.zeros((B, H + TH + 2, W + TW + 2, C), np.int64)
-    padded[:, halo:halo + H, halo:halo + W] = xq
-    w = wq.astype(np.int64)
-    for b in range(B):
-        for y0 in range(0, H, TH):
-            for x0 in range(0, W, TW):
-                staged = padded[b, y0:y0 + TH + 2, x0:x0 + TW + 2]
+    ov = ih - TR
+    # weights: chunk kc of row n at (kc * COUT + n) * 16
+    w_rows = wq.reshape(cout, 9 * kc_n, 16).astype(np.int64)
+    wbuf = np.ascontiguousarray(w_rows.transpose(1, 0, 2)).reshape(-1)
+    off_a, off_b = _desc_offsets(TW, lbo_a), _desc_offsets(cout, lbo_b)
+    # the epilogue: lane (warp, lane) holds pixels m and m + 8 of two
+    # channels of every block; after the transpose, block 4g + q of pixel m
+    assert all(_quad_transpose([[(q, k) for k in range(4)] for q in range(4)])[q]
+               == [(p, q) for p in range(4)] for q in range(4))
+    owner = np.zeros((TW, cout), np.int64)
+    for warp in range(4):
+        for lane in range(32):
+            for h in range(2):
+                m = 16 * warp + lane // 4 + 8 * h
+                for g in range(cout // 32):
+                    c = 8 * (4 * g + lane % 4)
+                    owner[m, c:c + 8] += 1
+    assert (owner == 1).all()
+
+    OH, OW = (2 * H, 2 * W) if up else (H, W)
+    out = np.zeros((B, OH, OW, cout), np.int64)
+    written = np.zeros(out.shape[:3], np.int64)
+    tiles_h, tiles_w = -(-H // TR), -(-W // TW)
+    ntiles = B * tiles_h * tiles_w
+    grid = min(ntiles, MODEL_BLOCKS)
+    for blk in range(grid):
+        first, last = ntiles * blk // grid, ntiles * (blk + 1) // grid
+        prev = None
+        for k, tile in enumerate(range(first, last)):
+            b, rem = divmod(tile, tiles_h * tiles_w)
+            seg, rp = divmod(rem, tiles_h)
+            y0, x0 = rp * TR, seg * TW
+            fresh = k == 0 or rp == 0
+            stage = np.full(kc_n * lbo_a, -999, np.int64)  # unstaged bytes poison the sums
+            new_rows = range(ih) if fresh else range(ov, ih)
+            if not fresh:
+                for kc in range(kc_n):
+                    n = ov * iw * 16
+                    stage[kc * lbo_a:kc * lbo_a + n] = \
+                        prev[kc * lbo_a + TR * iw * 16:kc * lbo_a + TR * iw * 16 + n]
+            for rho in new_rows:
+                for px in range(iw):
+                    gy, gx = y0 - halo + rho, x0 - halo + px
+                    for kc in range(kc_n):
+                        at = kc * lbo_a + (rho * iw + px) * 16
+                        inside = 0 <= gy < H and 0 <= gx < W
+                        stage[at:at + 16] = xq[b, gy, gx, kc * 16:kc * 16 + 16] if inside else 0
+            prev = stage
+            for r in range(TR):
+                a_row = r * iw * 16
                 for phase in range(4 if up else 1):
                     pr, pc = phase >> 1, phase & 1
-                    acc = np.zeros((TH, TW, cout), np.int64)
+                    acc = np.zeros((TW, cout), np.int64)
                     for tap in range(9):
                         u, v = divmod(tap, 3)
                         du, dv = u, v
@@ -182,22 +299,35 @@ def _kernel_model(xq, wq, up):
                             if (v != 1) if pc == 0 else (v == 1):
                                 continue
                             du, dv = int(u == 2), int(v == 2)
-                        acc += staged[du:du + TH, dv:dv + TW] @ w[:, u, v].T
-                    r, c = min(TH, H - y0), min(TW, W - x0)
-                    if up:
-                        out[b, 2 * y0 + pr:2 * (y0 + r):2, 2 * x0 + pc:2 * (x0 + c):2] = acc[:r, :c]
-                    else:
-                        out[b, y0:y0 + r, x0:x0 + c] = acc[:r, :c]
+                        a_tap = a_row + (du * iw + dv) * 16
+                        for kk in range(cin // 32):
+                            a = stage[a_tap + 2 * kk * lbo_a + off_a]
+                            bm = wbuf[(tap * kc_n + 2 * kk) * lbo_b + off_b]
+                            acc += a @ bm.T
+                    y = y0 + r
+                    for m in range(TW):
+                        x = x0 + m
+                        if y >= H or x >= W:
+                            continue
+                        oy, ox = (2 * y + pr, 2 * x + pc) if up else (y, x)
+                        out[b, oy, ox] = acc[m]
+                        written[b, oy, ox] += 1
+    assert (written == 1).all()
     return out
 
 
-@pytest.mark.parametrize("shape", [(1, 9, 17), (2, 8, 16), (1, 20, 35)])
+# (B, H, W, Cin, Cout): ragged tiles in H and W, W below 64, W not a
+# multiple of 64 (70, 130), H = 1, B = 3, Cin != Cout both ways
+@pytest.mark.parametrize("shape", [(1, 9, 17, 64, 64), (2, 8, 16, 64, 64),
+                                   (1, 20, 35, 64, 64), (1, 3, 70, 64, 128),
+                                   (3, 1, 130, 128, 64)])
 @pytest.mark.parametrize("up", [False, True])
 def test_kernel_tiling_model_matches_plain(rng, shape, up):
-    """The kernels' tiling and sub-pixel phases, modelled on the CPU,
-    give the plain version's sums, with ragged tiles in H and W."""
-    xq = _ints(rng, (*shape, 64))
-    wq = _ints(rng, (64, 3, 3, 64))
+    """The kernels' tiling, descriptor address maps, sub-pixel phases and
+    epilogue lanes, modelled on the CPU, give the plain version's sums."""
+    B, H, W, cin, cout = shape
+    xq = _ints(rng, (B, H, W, cin))
+    wq = _ints(rng, (cout, 3, 3, cin))
     fn = int8_conv.int8_up2x_sums if up else int8_conv.int8_conv3x3_sums
     want = fn(torch.from_numpy(xq), torch.from_numpy(wq)).numpy()
     np.testing.assert_array_equal(_kernel_model(xq, wq, up), want)

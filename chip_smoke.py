@@ -20,7 +20,8 @@ paper's config.  Phases:
    device time (a CUDA graph of back-to-back launches; the wrapper's
    back-to-back time beside it) against its bound, the plain version's
    time and the bf16 library chain's (``F.conv2d`` + sigmoid +
-   ``pixel_unshuffle``);
+   ``pixel_unshuffle``); then the fp32 route's f32 kernel against the
+   plain version in f32 at two shapes, and its time;
 4. the full-width generator (16 resblocks, bf16) on a (1, 8, 270, 480, 3)
    clip: output shape, range, both kernels' launch counts, fps, TFLOP/s
    and MFU against the H100's dense bf16 peak;
@@ -62,8 +63,10 @@ paper's config.  Phases:
    (float64 integer sums), bit for bit, at the main path's layer shapes,
    LR 135 x 240 at B=2, 37 x 53 and the edges of the kernels' 2 x 64-pixel
    tiles (W < 64, W = 64k + 1, H = 1, B = 3, Cin != Cout, a residual on
-   up2x); at each main-path layer shape its device time (a CUDA graph, as
-   in 3) against its bound, and two labelled yardsticks that are not the
+   up2x), and the fp32 route's instantiations at four shapes; at each
+   main-path layer shape (as ``tecogan_tpu_torch/tools/int8_layers.py``
+   defines them) its device time (a CUDA graph, as in 3) against its
+   bound, and two labelled yardsticks that are not the
    same function (PyTorch has no int8 conv): the bf16 cuDNN conv of the
    shape and ``torch._int_mm`` on its im2col GEMM alone (M = B H W,
    K = 9 Cin, N = Cout, s8 x s8 -> s32); ``prepare`` on the full-width
@@ -357,19 +360,10 @@ def train_phases(dev: torch.device, smi: str) -> None:
     require(r_g <= CARD_CPU_RTOL and r_d <= CARD_CPU_RTOL, "[11] step after load differs")
 
 
-# phase 12: (name, transposed, (B, H, W, Cin, Cout), relu, residual,
-# launches a frame) of the int8 tail at 270p -> 1080p, 16 resblocks
-INT8_LAYERS = [("resblock Conv_0", False, (1, 270, 480, 64, 64), True, False, 16),
-               ("resblock Conv_1 + skip", False, (1, 270, 480, 64, 64), False, True, 16),
-               ("up1", True, (1, 270, 480, 64, 64), True, False, 1),
-               ("trunk_rb1/Conv_0", False, (1, 540, 960, 64, 64), True, False, 1),
-               ("trunk_rb1/Conv_1", False, (1, 540, 960, 64, 64), False, False, 1),
-               ("trunk_rb2/Conv_0", False, (1, 540, 960, 64, 128), True, False, 1),
-               ("trunk_rb2/Conv_1", False, (1, 540, 960, 128, 128), False, False, 1),
-               ("up2", True, (1, 540, 960, 128, 128), True, False, 1),
-               ("conv_hr", False, (1, 1080, 1920, 128, 64), True, False, 1)]
-# further shapes the kernels are checked at: B=2 at LR 135 x 240, odd H and
-# W, and the edges of the 2 x 64-pixel tiles: W below 64, W = 64k + 1, W not
+# phase 12 times the int8 tail's layer shapes at 270p -> 1080p (LAYERS of
+# tecogan_tpu_torch/tools/int8_layers.py, with its inputs, work counts and
+# yardsticks); further shapes the kernels are checked at: B=2 at LR
+# 135 x 240, odd H and W, and the edges of the 2 x 64-pixel tiles: W below 64, W = 64k + 1, W not
 # a multiple of 64, H = 1, B = 3, Cin != Cout both ways, a residual on up2x
 INT8_EXTRA = [(False, (2, 135, 240, 64, 64), True, True), (True, (2, 135, 240, 64, 64), True, False),
               (False, (1, 37, 53, 128, 64), True, True), (True, (1, 37, 53, 128, 128), False, True),
@@ -377,24 +371,11 @@ INT8_EXTRA = [(False, (2, 135, 240, 64, 64), True, True), (True, (2, 135, 240, 6
               (False, (1, 1, 130, 128, 64), True, False), (False, (3, 7, 70, 64, 128), False, True),
               (True, (1, 5, 40, 128, 64), True, True), (True, (2, 1, 65, 64, 128), False, True),
               (True, (3, 4, 129, 64, 64), True, True), (True, (1, 3, 70, 128, 64), False, True)]
-PEAK_INT8_OPS = 1979e12              # dense tensor cores, data sheet
+# the fp32 route's instantiations, bit-equal too: (transposed, shape, relu, residual)
+INT8_F32 = [(False, (1, 270, 480, 64, 64), False, True), (False, (1, 37, 53, 128, 64), True, True),
+            (True, (1, 540, 960, 128, 128), True, False), (True, (2, 1, 65, 64, 128), False, True)]
 INT8_VS_BF16_DB = 35.0               # tests/test_quant.py:105, the JAX package's bar
 INT8_CHUNK_T, INT8_CHUNK = 12, 5
-
-
-def int8_inputs(dev, transposed, shape, seed):
-    """A bf16 input, its scale (m at 0.8 of max|x|: some values clamp),
-    full-range int8 weights, deq, bias and a residual of the output's shape."""
-    B, H, W, cin, cout = shape
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).bfloat16()
-    inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
-    wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev, dtype=torch.int8)
-    deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
-    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-    oh, ow = (2 * H, 2 * W) if transposed else (H, W)
-    res = torch.randn((B, oh, ow, cout), generator=g, device=dev).bfloat16()
-    return x, inv_s, wq, deq, bias, res
 
 
 def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, small_sd,
@@ -403,12 +384,14 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
     from tecogan_tpu_torch.engine.fused import first_layer_zero_feedback
     from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
                                                     build_quantized_clip_inference)
-    from tecogan_tpu_torch.engine.quant import tail_features_int8
+    from tecogan_tpu_torch.engine.quant import int8_conv3x3, tail_features_int8
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.tools.int8_layers import (LAYERS, PEAK_INT8_OPS, layer_inputs,
+                                                     layer_work, yardsticks)
     from tecogan_tpu_torch.utils.flops import int8_tail_macs_per_frame
-    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms, int_mm_ms
+    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms, host_issue_ms
 
     recs = {up: {"name": "int8_up2x" if up else "int8_conv3x3", "route": "cuda",
                  "source": "tecogan_tpu_torch/csrc/int8_conv.cu",
@@ -418,11 +401,11 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
                  "bytes": 0, "ops": 0} for up in (False, True)}
     fns = {False: (qmod.int8_conv3x3_cuda, qmod.int8_conv3x3_reference),
            True: (qmod.int8_up2x_cuda, qmod.int8_up2x_reference)}
-    checks = [(up, shape, relu, res) for _, up, shape, relu, res, _ in INT8_LAYERS] + INT8_EXTRA
-    timed = {(up, shape, relu, res): (name, n) for name, up, shape, relu, res, n in INT8_LAYERS}
+    checks = [(up, shape, relu, res) for _, up, shape, relu, res, _ in LAYERS] + INT8_EXTRA
+    timed = {(up, shape, relu, res): (name, n) for name, up, shape, relu, res, n in LAYERS}
     for i, (up, shape, relu, residual) in enumerate(checks):
         kernel, plain = fns[up]
-        x, inv_s, wq, deq, bias, res = int8_inputs(dev, up, shape, 100 + i)
+        x, inv_s, wq, deq, bias, res = layer_inputs(dev, up, shape, 100 + i)
         res = res if residual else None
         got = kernel(x, inv_s, wq, deq, bias, relu, res)
         want = plain(x, inv_s, wq, deq, bias, relu, res)
@@ -439,19 +422,9 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
             B, H, W, cin, cout = shape
             ms = graph_ms(lambda: kernel(x, inv_s, wq, deq, bias, relu, res), 20)
             plain_ms = events_ms(lambda: plain(x, inv_s, wq, deq, bias, relu, res), 2)
-            xc = x.permute(0, 3, 1, 2)
-            if up:
-                wt = torch.randn((cin, cout, 3, 3), device=dev).bfloat16().contiguous(
-                    memory_format=torch.channels_last)
-                cudnn_ms = events_ms(lambda: F.conv_transpose2d(
-                    xc, wt, bias.bfloat16(), stride=2, padding=1, output_padding=1), 20)
-            else:
-                wt = wq.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
-                cudnn_ms = events_ms(lambda: F.conv2d(xc, wt, bias.bfloat16(), padding=1), 20)
+            cudnn_ms, mm_ms = yardsticks(x, wq, bias, up, 20)
             px = B * H * W
-            mm_ms = int_mm_ms(px, 9 * cin, cout, 10, dev)
-            bytes_moved = (x.numel() + got.numel() * (2 if residual else 1)) * 2 + wq.numel() + cout * 8
-            ops = 2 * 9 * cin * cout * px
+            bytes_moved, ops = layer_work(x, got, wq, residual)
             b_ms, b_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
             rec = recs[up]
             rec["ms"] += n * ms
@@ -463,12 +436,28 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
                      f" | not the same function: bf16 cuDNN {'conv_transpose2d' if up else 'conv2d'}"
                      f" + bias {cudnn_ms:.4f} ms, torch._int_mm s8 GEMM alone (M {px}, K {9 * cin},"
                      f" N {cout}) {mm_ms:.4f} ms, {ops / mm_ms / 1e9:.1f} TOP/s | {smi}")
-            del xc, wt
         print(line, flush=True)
         require(err == 0.0, f"[12] {recs[up]['name']} differs from its plain version at {shape}")
         del x, wq, deq, bias, res, got, want
     for rec in recs.values():
         rec["bound_ms"], rec["bound_by"] = bound(rec.pop("bytes"), rec.pop("ops"), PEAK_INT8_OPS)
+    # the fp32 route's instantiations of both kernels (f32 in and out)
+    for i, (up, shape, relu, residual) in enumerate(INT8_F32):
+        kernel, plain = fns[up]
+        x, inv_s, wq, deq, bias, res = layer_inputs(dev, up, shape, 200 + i, torch.float32)
+        res = res if residual else None
+        got = kernel(x, inv_s, wq, deq, bias, relu, res)
+        want = plain(x, inv_s, wq, deq, bias, relu, res)
+        torch.cuda.synchronize()
+        line = (f"[12] {recs[up]['name']} fp32 {shape} relu={relu} residual={residual}: "
+                f"{'bit-equal' if torch.equal(got, want) else 'DIFFERS'} against the plain version")
+        if i == 0:
+            ms = graph_ms(lambda: kernel(x, inv_s, wq, deq, bias, relu, res), 20)
+            line += f" | kernel {ms:.4f} ms (graph) | {smi}"
+        print(line, flush=True)
+        require(got.dtype == torch.float32 and torch.equal(got, want),
+                f"[12] {recs[up]['name']} fp32 differs from its plain version at {shape}")
+        del x, wq, deq, bias, res, got, want
 
     # the full-width int8 clip after prepare on its 8 frames
     prepare, qinfer = build_quantized_clip_inference(cfg)
@@ -501,11 +490,17 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
         net = first_layer_zero_feedback(model, clip[:, 0]).contiguous()
         tail_ms = events_ms(lambda: tail_features_int8(model, qtail, net), 10)
         trunk_ms = events_ms(lambda: model.tail_features(net), 10)
+        # the host's side: issuing the tail, and one resblock layer's wrapper call
+        tail_issue_ms = host_issue_ms(lambda: tail_features_int8(model, qtail, net), 10)
+        q = qtail["resblock_0/Conv_0"]
+        call_us = host_issue_ms(lambda: int8_conv3x3(net, q["inv_s"], q["wq"], q["deq"],
+                                                     q["bias"], True), 200) * 1e3
     tops = 2.0 * int8_tail_macs_per_frame(CLIP[2], CLIP[3], n) / (tail_ms / 1e3) / 1e12
     print(f"[12] int8 clip 270p->1080p T={T} full width, prepare on its {T} frames: "
           f"{T / secs:.3f} fps ({secs * 1e3:.3f} ms), bf16 route {T / bf16_secs:.3f} fps in "
           f"this run | tail {tail_ms:.4f} ms a frame vs the bf16 trunk {trunk_ms:.4f} ms "
-          f"(CUDA events, 10 calls) | {tops:.3f} TOP/s, {tops * 1e12 / PEAK_INT8_OPS:.3%} of "
+          f"(CUDA events, 10 calls); the host issues the tail in {tail_issue_ms:.4f} ms, a "
+          f"wrapper call in {call_us:.2f} us | {tops:.3f} TOP/s, {tops * 1e12 / PEAK_INT8_OPS:.3%} of "
           f"1979 TOP/s | int8 vs bf16 clip {psnr(out, bf16_out):.2f} dB (torch's init scale) | "
           f"launches int8_conv3x3 {launches[0]}, int8_up2x {launches[1]}, conv_out_s2d "
           f"{launches[2]}, warp_s2d {launches[3]} | {smi}", flush=True)
@@ -619,6 +614,24 @@ def main() -> None:
         require(mx <= MAX_ERR and mean <= MEAN_ERR,
                 f"kernel vs plain at {shape}: max {mx} mean {mean}")
         del feat, feat32, ref, got, err
+    # the fp32 route's kernel: f32 features and weights, against the plain
+    # version in f32 (they differ in summation order, then one bf16 rounding)
+    for shape in (FEAT_SHAPES[0], FEAT_SHAPES[2]):
+        feat32 = torch.rand(shape, generator=gen, device=dev)
+        ref = kmod.conv_out_s2d_reference(feat32, weight, bias)
+        got = kmod.conv_out_s2d_cuda(feat32, weight, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs()
+        mx, mean = float(err.max()), float(err.mean())
+        line = f"[3] conv_out_s2d fp32 {shape}: max_abs {mx:.3e} mean_abs {mean:.3e}"
+        if shape == FEAT_SHAPES[0]:
+            ms = graph_ms(lambda: kmod.conv_out_s2d_cuda(feat32, weight, bias), 20)
+            line += f" | kernel {ms:.4f} ms (graph) | {smi}"
+        print(line, flush=True)
+        require(tuple(got.shape) == tuple(ref.shape) and got.dtype == torch.bfloat16
+                and mx <= MAX_ERR and mean <= MEAN_ERR,
+                f"fp32 kernel vs plain at {shape}: max {mx} mean {mean}")
+        del feat32, ref, got, err
 
     # -- 4. the full-width serving path
     cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False,

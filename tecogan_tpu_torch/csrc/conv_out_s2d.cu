@@ -5,7 +5,7 @@
 // for both: masked row and column tails cover every B, H and W.
 //
 // Contract (NHWC):
-//   feat  (B, 4H, 4W, 64) bf16, contiguous
+//   feat  (B, 4H, 4W, 64) bf16 (f32: the f32 kernel below), contiguous
 //   w     (3, 3, 64, 3)   f32 HWIO, contiguous; rounded to bf16 (to
 //                         nearest) on load, as the JAX route casts it
 //   bias  (3,)            f32
@@ -35,6 +35,11 @@
 // staged feature is read from shared memory once (one ldmatrix.x4 per
 // 16x16 A tile).  The B fragments (32 registers) are built once per block
 // from the f32 weights, rounded to bf16.
+//
+// The fp32 route, a precision reference, has a kernel of its own
+// (conv_out_s2d_f32_kernel, at the end): the same function on f32 features
+// and the f32 weights as they are (no rounding to bf16), summed with f32
+// FMAs on the CUDA cores, the result rounded to bf16 once.
 //
 // Tiling: a block of 8 warps owns a strip of TC = 30 LR columns (120 HR
 // columns plus a 1-pixel halo on each side: 122 staged pixels in 8 M
@@ -312,6 +317,74 @@ conv_out_s2d_kernel(const __nv_bfloat16* __restrict__ feat,
   store_row(s, s.nb - 1);
 }
 
+// ---- the f32 kernel -----------------------------------------------------------------
+// A block: LR row i, LR columns j0 .. j0 + F_LRC - 1, that is 4 HR rows of
+// F_COLS HR columns, one thread an HR pixel.  Its 6 x F_SW staged HR pixels
+// (a halo of one) pass through shared memory in chunks of F_KC channels,
+// padded to F_PIX floats a pixel so that a quarter warp's float4 reads of 8
+// neighbouring pixels hit distinct banks; the weights sit there as one
+// float4 (c0, c1, c2, 0) a (u, v, k), read by every thread of a warp at once.
+constexpr int F_LRC = 16;                    // LR columns a block
+constexpr int F_COLS = 4 * F_LRC;            // HR columns a block
+constexpr int F_THREADS = 4 * F_COLS;        // one an HR pixel
+constexpr int F_SW = F_COLS + 2;             // staged HR columns
+constexpr int F_KC = 16;                     // channels a chunk
+constexpr int F_PIX = F_KC + 4;              // floats a staged pixel
+constexpr int F_STAGE = 6 * F_SW * F_PIX;    // floats of staged features
+constexpr int F_SMEM = (F_STAGE + 9 * K * 4) * 4;
+static_assert(F_SMEM <= 48 * 1024, "no opt-in shared memory needed");
+static_assert(K % F_KC == 0 && F_COLS % 32 == 0, "whole chunks, one HR row a warp");
+
+__global__ void __launch_bounds__(F_THREADS)
+conv_out_s2d_f32_kernel(const float* __restrict__ feat, const float* __restrict__ wgt,
+                        const float* __restrict__ bias_g, __nv_bfloat16* __restrict__ out,
+                        int H, int W) {
+  extern __shared__ __align__(16) float fsm[];
+  float4* w4 = reinterpret_cast<float4*>(fsm + F_STAGE);
+  const int b = blockIdx.z, i = blockIdx.y, j0 = blockIdx.x * F_LRC;
+  const int H4 = 4 * H, W4 = 4 * W, tid = threadIdx.x;
+  const float* img = feat + (size_t)b * H4 * W4 * K;
+  for (int e = tid; e < 9 * K; e += F_THREADS)  // e = (u * 3 + v) * K + k
+    w4[e] = make_float4(__ldg(wgt + C * e), __ldg(wgt + C * e + 1), __ldg(wgt + C * e + 2), 0.f);
+  const int a = tid / F_COLS, xl = tid % F_COLS;  // HR row 4i + a, column 4 j0 + xl
+  float acc[C] = {0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < K; k0 += F_KC) {
+    __syncthreads();  // the previous chunk is read (and the weights written)
+    for (int e = tid; e < 6 * F_SW * (F_KC / 4); e += F_THREADS) {
+      const int q = e % (F_KC / 4), p = (e / (F_KC / 4)) % F_SW, r = e / (F_KC / 4 * F_SW);
+      const int gy = 4 * i - 1 + r, gx = 4 * j0 - 1 + p;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gy >= 0 && gy < H4 && gx >= 0 && gx < W4)
+        v = __ldg(reinterpret_cast<const float4*>(img + ((size_t)gy * W4 + gx) * K + k0) + q);
+      *reinterpret_cast<float4*>(fsm + (r * F_SW + p) * F_PIX + 4 * q) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* px = fsm + ((a + tap / 3) * F_SW + xl + tap % 3) * F_PIX;
+      const float4* wp = w4 + tap * K + k0;
+#pragma unroll
+      for (int kq = 0; kq < F_KC / 4; ++kq) {
+        const float4 f = *reinterpret_cast<const float4*>(px + 4 * kq);
+        const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 w = wp[4 * kq + t];
+          acc[0] = fmaf(fs[t], w.x, acc[0]);
+          acc[1] = fmaf(fs[t], w.y, acc[1]);
+          acc[2] = fmaf(fs[t], w.z, acc[2]);
+        }
+      }
+    }
+  }
+  const int x = 4 * j0 + xl;
+  if (x >= W4) return;
+  __nv_bfloat16* o = out + (((size_t)b * H + i) * W + (x >> 2)) * REC + a * 4 + (x & 3);
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    o[c * 16] = __float2bfloat16_rn(1.f / (1.f + expf(-(acc[c] + __ldg(bias_g + c)))));
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes), both on the calling thread's
@@ -325,11 +398,19 @@ extern "C" int conv_out_s2d_init() {
                                    SMEM_BYTES);
 }
 
-// conv_out_s2d_launch: launch on `stream` without synchronising; returns
+// conv_out_s2d_launch: launch on `stream` without synchronising; feat is
+// bf16, or f32 where `f32` is nonzero (the f32 kernel); returns
 // cudaGetLastError() (0 on success).
 extern "C" int conv_out_s2d_launch(const void* feat, const void* weight,
                                    const void* bias, void* out, int B, int H,
-                                   int W, void* stream) {
+                                   int W, int f32, void* stream) {
+  if (f32) {
+    const dim3 grid((W + F_LRC - 1) / F_LRC, H, B);
+    conv_out_s2d_f32_kernel<<<grid, F_THREADS, F_SMEM, (cudaStream_t)stream>>>(
+        static_cast<const float*>(feat), static_cast<const float*>(weight),
+        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((W + TC - 1) / TC, (H + BH - 1) / BH, B);
   conv_out_s2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(weight),

@@ -9,21 +9,23 @@
 //
 //   xq  = clamp(rint(float(x) * inv_s), -127, 127)            (s8)
 //   acc = sum over taps and input channels of xq * wq           (s32, exact)
-//   y   = bf16(float(acc) * deq[o] + bias[o])   (each op rounded on its own)
+//   y   = T(float(acc) * deq[o] + bias[o])      (each op rounded on its own)
 //   y   = relu(y)                 if relu
-//   y   = bf16(float(y) + float(res))           if res
+//   y   = T(float(y) + float(res))              if res
 //
-// which is what the plain version (ops/kernels/int8_conv.py) computes with
+// with T the activation type, bf16 (the served route) or f32 (the fp32
+// route, a precision reference; there the casts to T are exact).  That is
+// what the plain version (ops/kernels/int8_conv.py) computes with
 // torch's ops, so the two agree bit for bit.  An s32 sum is exact in any
 // order, so only the epilogue's rounding sequence has to follow torch's.
 //
 // Contract (NHWC, contiguous):
-//   x    (B, H, W, CIN) bf16, CIN in {64, 128}
+//   x    (B, H, W, CIN) T, CIN in {64, 128}
 //   wq   (COUT, 3, 3, CIN) s8: output channel o's taps (u, v) and input
 //        channels, k = (3u + v) * CIN + ci contiguous; COUT in {64, 128}
 //   inv_s (1,) f32 on the device; deq, bias (COUT,) f32 (bias may be null)
-//   res  null or the output's shape, bf16
-//   out  3x3: (B, H, W, COUT); up2x: (B, 2H, 2W, COUT), bf16
+//   res  null or the output's shape, T
+//   out  3x3: (B, H, W, COUT); up2x: (B, 2H, 2W, COUT), T
 //
 // int8_conv3x3: out[y, x] = sum_{u,v} xq[y + u - 1, x + v - 1] . wq[u, v],
 // zero outside the image.  int8_up2x: JAX's lhs-dilated conv (dilation 2,
@@ -42,10 +44,10 @@
 // device memory: the input is quantized while it is staged into shared
 // memory, and the epilogue applies the dequantization, bias, ReLU and
 // residual before the one bf16 store.  Measured on an H100 80GB HBM3 at
-// 700 W, each layer of that tail takes 37-58% of its bytes bound (the
-// 270 x 480 layers the least: with 8-9 tiles a block, launch, weight copy
-// and pipeline fill weigh as much as their bytes); PERF.md section 6 has
-// the times.
+// 700 W, each layer of that tail takes 32-57% of its bytes bound (the
+// 270 x 480 layers the least: with 8-9 tiles a block, launch, the weight
+// copy, which waits for the previous kernel's end, and pipeline fill weigh
+// as much as their bytes); PERF.md section 6 has the times.
 //
 // Design.  One persistent block an SM (grid = min(tiles, SMs)) of three
 // warpgroups.  A tile is TR = 2 rows by TW = 64 columns of pixels (output
@@ -72,12 +74,12 @@
 //   IH * IW * 16 (rounded up to 128, plus 16 or 32 bytes so that the
 //   producer's 16-byte stores of a pixel's chunks hit distinct banks) along
 //   K.  No im2col copy.  Pixels outside the image are quantized zeros.
-// * Warpgroup 0 produces: row by row, it keeps
-//   the 16-byte loads of the next DEPTH staged rows (3 at CIN 64, 2 at 128)
-//   in flight while it quantizes a loaded row in registers and stores its
-//   s8 chunks.  A tile's first row waits for its stage's "empty" mbarrier;
-//   its last row fences the stage for the async proxy and arrives on the
-//   stage's "full" mbarrier.  So staging overlaps the wgmmas.
+// * Warpgroup 0 produces: row by row, it keeps the 16-byte loads of the
+//   next DEPTH staged rows (bf16: 3 at CIN 64, 2 at 128; f32, twice the
+//   bytes a row: 1) in flight while it quantizes a loaded row in registers
+//   and stores its s8 chunks.  A tile's first row waits for its stage's
+//   "empty" mbarrier; its last row fences the stage for the async proxy and
+//   arrives on the stage's "full" mbarrier.  So staging overlaps the wgmmas.
 // * Warpgroups 1 and 2 consume: warpgroup 1 + c takes the block's tiles
 //   c, c + 2, ..., both rows of each: a row is one m64 chain of
 //   wgmma.mma_async m64nCOUTk32 (9 taps x CIN / 32; up2x: one chain a
@@ -90,14 +92,19 @@
 //   and applies the ReLU on its own values, then the 4 lanes of a quad
 //   transpose their 4-byte pieces with shuffles, so that each lane holds 8
 //   consecutive channels of one pixel: every store (and residual load) is
-//   16 bytes, and a quad writes 64 contiguous bytes.  up2x's four phases
-//   store to the pixels (2i + a, 2j + b) of their phase.
-// * Programmatic dependent launch: the weight copy and barrier set-up run
-//   while the previous kernel of the stream finishes; x, the residual and
-//   the output are touched only after griddepcontrol.wait.
+//   16 bytes, and a quad writes 64 contiguous bytes.  In f32 a lane stores
+//   its own 8-byte pairs (a quad writes 32 contiguous bytes).  up2x's four
+//   phases store to the pixels (2i + a, 2j + b) of their phase.
+// * Programmatic dependent launch: only the mbarrier set-up runs while the
+//   previous kernel of the stream finishes.  Every read of device memory
+//   (weights, deq, bias, inv_s, x, the residual) and every write follows
+//   griddepcontrol.wait, so the kernel just before may produce any input.
+//   The consumers copy the weights while the producer stages the first
+//   tile, which they wait for anyway.
 //
-// Shared memory (bytes): weights 9 * CIN * COUT, deq and bias 8 * COUT,
-// NS stages of CIN / 16 * LBO_A, 2 * NS mbarriers.
+// Shared memory (bytes), the same for both activation types: weights
+// 9 * CIN * COUT, deq and bias 8 * COUT, NS stages of CIN / 16 * LBO_A,
+// 2 * NS mbarriers.
 //   3x3   CIN 64:  stage 17,024;  COUT 64: 4 stages, 105,536;  COUT 128: 4 stages, 142,912
 //   3x3   CIN 128: stage 33,920;  COUT 64: 4 stages, 209,984;  COUT 128: 2 stages, 216,352
 //   up2x  CIN 64:  stage 12,928;  COUT 64: 4 stages,  89,152;  COUT 128: 4 stages, 126,528
@@ -119,7 +126,7 @@ constexpr int MAX_STAGES = 4;
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-template <int CIN, int COUT, bool UP>
+template <int CIN, int COUT, bool UP, int ESIZE>
 struct Cfg {
   static constexpr int KC = CIN / 16;              // 16-byte K chunks a pixel
   static constexpr int K = 9 * CIN;                // GEMM depth
@@ -139,7 +146,9 @@ struct Cfg {
   static constexpr int OV = IH - TR;               // staged rows shared by two tiles
   static constexpr int ROW_ITEMS = IW * KC;        // 16-byte s8 chunks a staged row
   static constexpr int PER_ROW = cdiv(ROW_ITEMS, 128);  // a producer thread's
-  static constexpr int DEPTH = KC == 4 ? 3 : 2;   // staged rows loaded ahead
+  static constexpr int VEC = ESIZE;                // 16-byte loads an item (16 channels)
+  // staged rows loaded ahead: the loads in flight take at most 80 registers
+  static constexpr int DEPTH = ESIZE == 4 ? 1 : KC == 4 ? 3 : 2;
   static_assert(NS >= 2, "the ring needs two stages");
   static_assert(RING_OFF % 128 == 0 && STAGE % 16 == 0, "16-byte aligned stages");
   static_assert(((LBO_A / 16) % 8 == 2 && KC == 4) || ((LBO_A / 16) % 8 == 1 && KC == 8),
@@ -263,20 +272,33 @@ __device__ __forceinline__ uint32_t quant1(float v, float s) {
   return __float_as_uint(__fadd_rn(t, 12582912.f));
 }
 
-// 8 bf16 (one uint4) -> 8 s8 (a uint2), in order
-__device__ __forceinline__ uint2 quant8(uint4 v, float s) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  uint32_t q[2];
+// 4 values, in order -> 4 s8 in one word
+__device__ __forceinline__ uint32_t quant4(float v0, float v1, float v2, float v3, float s) {
+  const uint32_t lo = __byte_perm(quant1(v0, s), quant1(v1, s), 0x0040);
+  const uint32_t hi = __byte_perm(quant1(v2, s), quant1(v3, s), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+// One item, the 16 channels of a pixel that make a 16-byte K chunk: its
+// VEC 16-byte loads (2 of bf16, 4 of f32) -> 16 s8, in order.
+__device__ __forceinline__ uint4 quant16(const uint4 (&v)[2], float s) {
+  uint32_t q[4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t a = w[2 * h], b = w[2 * h + 1];
-    const uint32_t lo = __byte_perm(quant1(__uint_as_float(a << 16), s),
-                                    quant1(__uint_as_float(a & 0xffff0000u), s), 0x0040);
-    const uint32_t hi = __byte_perm(quant1(__uint_as_float(b << 16), s),
-                                    quant1(__uint_as_float(b & 0xffff0000u), s), 0x0040);
-    q[h] = __byte_perm(lo, hi, 0x5410);
+  for (int h = 0; h < 4; ++h) {
+    const uint32_t a = (&v[h >> 1].x)[2 * (h & 1)], b = (&v[h >> 1].x)[2 * (h & 1) + 1];
+    q[h] = quant4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                  __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u), s);
   }
-  return make_uint2(q[0], q[1]);
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+__device__ __forceinline__ uint4 quant16(const uint4 (&v)[4], float s) {
+  uint32_t q[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    q[h] = quant4(__uint_as_float(v[h].x), __uint_as_float(v[h].y),
+                  __uint_as_float(v[h].z), __uint_as_float(v[h].w), s);
+  return make_uint4(q[0], q[1], q[2], q[3]);
 }
 
 // Two output values: float(acc) * deq, + bias, each rounded on its own,
@@ -293,6 +315,18 @@ __device__ __forceinline__ uint32_t dequant2(int a0, int a1, float2 dq, float2 b
   const __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
   const uint32_t u = *reinterpret_cast<const uint32_t*>(&y);
   return relu ? __vmaxs2(u, 0u) : u;
+}
+
+// The same in f32, where the cast to the activation type is exact: two
+// values, each ReLU'd by fmaxf (the residual add follows in the epilogue).
+__device__ __forceinline__ float2 dequant2_f32(int a0, int a1, float2 dq, float2 bs,
+                                               bool has_bias, bool relu) {
+  float v0 = __fmul_rn(__int2float_rn(a0), dq.x), v1 = __fmul_rn(__int2float_rn(a1), dq.y);
+  if (has_bias) {
+    v0 = __fadd_rn(v0, bs.x);
+    v1 = __fadd_rn(v1, bs.y);
+  }
+  return relu ? make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f)) : make_float2(v0, v1);
 }
 
 __device__ __forceinline__ uint32_t pick(uint32_t v0, uint32_t v1, uint32_t v2, uint32_t v3,
@@ -329,14 +363,16 @@ __device__ __forceinline__ uint32_t add_bf16x2(uint32_t y, uint32_t r) {
 
 // ---- the kernel ---------------------------------------------------------------------
 
+// T: the activation type of x, the residual and the output, bf16 or f32
+template <typename T>
 struct Args {
-  const __nv_bfloat16* x;
+  const T* x;
   const int8_t* wq;
   const float* inv_s;
   const float* deq;
   const float* bias;
-  const __nv_bfloat16* res;
-  __nv_bfloat16* out;
+  const T* res;
+  T* out;
   int B, H, W, relu;
 };
 
@@ -364,10 +400,11 @@ struct RowJob {
   Tile t;
 };
 
-template <int CIN, int COUT, bool UP>
+template <int CIN, int COUT, bool UP, typename T>
 struct Producer {
-  using C = Cfg<CIN, COUT, UP>;
-  const Args& a;
+  using C = Cfg<CIN, COUT, UP, sizeof(T)>;
+  using Item = uint4[C::VEC];  // an item's 16 channels, loaded
+  const Args<T>& a;
   int first, nk, tiles_h, tiles_w, tid;
 
   __device__ __forceinline__ void start(RowJob& j, int k) const {
@@ -387,38 +424,35 @@ struct Producer {
     return j.t.fresh ? j.i : C::OV + j.i;
   }
 
-  // issue the 16-byte loads of job j's bf16 row (zeros outside the image)
-  __device__ __forceinline__ void load(const RowJob& j, uint4 (&lo)[C::PER_ROW],
-                                       uint4 (&hi)[C::PER_ROW]) const {
+  // issue the 16-byte loads of job j's row (zeros outside the image)
+  __device__ __forceinline__ void load(const RowJob& j, Item (&buf)[C::PER_ROW]) const {
     const int gy = j.t.y0 - C::HALO + row(j);
     const bool row_in = j.k < nk && gy >= 0 && gy < a.H;
-    const __nv_bfloat16* src_row =
-        a.x + (static_cast<size_t>(j.t.b) * a.H + (row_in ? gy : 0)) * a.W * CIN;
+    const T* src_row = a.x + (static_cast<size_t>(j.t.b) * a.H + (row_in ? gy : 0)) * a.W * CIN;
 #pragma unroll
     for (int e = 0; e < C::PER_ROW; ++e) {
       const int item = e * 128 + tid, px = item / C::KC, kc = item % C::KC;
       const int gx = j.t.x0 - C::HALO + px;
-      lo[e] = hi[e] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int h = 0; h < C::VEC; ++h) buf[e][h] = make_uint4(0u, 0u, 0u, 0u);
       if (row_in && item < C::ROW_ITEMS && gx >= 0 && gx < a.W) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            src_row + static_cast<size_t>(gx) * CIN + kc * 16);
-        lo[e] = __ldg(src);
-        hi[e] = __ldg(src + 1);
+        const uint4* src =
+            reinterpret_cast<const uint4*>(src_row + static_cast<size_t>(gx) * CIN + kc * 16);
+#pragma unroll
+        for (int h = 0; h < C::VEC; ++h) buf[e][h] = __ldg(src + h);
       }
     }
   }
 
   // quantize the loaded row into staged row `rho` of the stage at `st`
-  __device__ __forceinline__ void store(unsigned char* st, int rho, const uint4 (&lo)[C::PER_ROW],
-                                        const uint4 (&hi)[C::PER_ROW], float inv_s) const {
+  __device__ __forceinline__ void store(unsigned char* st, int rho, const Item (&buf)[C::PER_ROW],
+                                        float inv_s) const {
 #pragma unroll
     for (int e = 0; e < C::PER_ROW; ++e) {
       const int item = e * 128 + tid, px = item / C::KC, kc = item % C::KC;
-      if (item < C::ROW_ITEMS) {
-        const uint2 q0 = quant8(lo[e], inv_s), q1 = quant8(hi[e], inv_s);
+      if (item < C::ROW_ITEMS)
         *reinterpret_cast<uint4*>(st + kc * C::LBO_A + (rho * C::IW + px) * 16) =
-            make_uint4(q0.x, q0.y, q1.x, q1.y);
-      }
+            quant16(buf[e], inv_s);
     }
   }
 
@@ -437,11 +471,39 @@ struct Producer {
 // Consumer epilogue of one m64 tile: acc holds, for this lane, pixels
 // m0 = 16 warp + lane / 4 and m0 + 8, channels 8 j + 2 (lane % 4) + {0, 1}
 // of every 8-channel block j.  `pix(m)` gives output pixel m's element
-// offset, or -1 where it lies outside the output.
+// offset, or -1 where it lies outside the output.  In f32 each lane
+// stores its own 8-byte pairs: a quad writes 32 contiguous bytes a block.
 template <int COUT, typename PixFn>
-__device__ __forceinline__ void epilogue(const Args& a, const int (&acc)[COUT / 2],
+__device__ __forceinline__ void epilogue(const Args<float>& a, const int (&acc)[COUT / 2],
                                          const float* deq_s, const float* bias_s,
                                          int wtid, PixFn pix) {
+  const int lane = wtid & 31, warp = wtid >> 5, q = lane & 3;
+  const bool has_bias = a.bias != nullptr, relu = a.relu != 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long base = pix(16 * warp + (lane >> 2) + 8 * h);
+    if (base < 0) continue;
+#pragma unroll
+    for (int j = 0; j < COUT / 8; ++j) {
+      const int ch = 8 * j + 2 * q;
+      const float2 dq = *reinterpret_cast<const float2*>(deq_s + ch);
+      const float2 bs = *reinterpret_cast<const float2*>(bias_s + ch);
+      float2 v = dequant2_f32(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], dq, bs, has_bias, relu);
+      if (a.res != nullptr) {
+        const float2 r = __ldg(reinterpret_cast<const float2*>(a.res + base + ch));
+        v = make_float2(__fadd_rn(v.x, r.x), __fadd_rn(v.y, r.y));
+      }
+      *reinterpret_cast<float2*>(a.out + base + ch) = v;
+    }
+  }
+}
+
+// The bf16 epilogue: each lane rounds its own values, then the quad
+// transposes them into 16-byte pieces.
+template <int COUT, typename PixFn>
+__device__ __forceinline__ void epilogue(const Args<__nv_bfloat16>& a,
+                                         const int (&acc)[COUT / 2], const float* deq_s,
+                                         const float* bias_s, int wtid, PixFn pix) {
   const int lane = wtid & 31, warp = wtid >> 5, q = lane & 3;
   const bool has_bias = a.bias != nullptr, relu = a.relu != 0;
   uint32_t pk[2][COUT / 8];
@@ -482,9 +544,9 @@ __host__ __device__ constexpr int first_tap(int pr, int pc) {
   return 3 * (pr ? 0 : 1) + (pc ? 0 : 1);
 }
 
-template <int CIN, int COUT, bool UP>
-__global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
-  using C = Cfg<CIN, COUT, UP>;
+template <int CIN, int COUT, bool UP, typename T>
+__global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args<T> a) {
+  using C = Cfg<CIN, COUT, UP, sizeof(T)>;
   extern __shared__ __align__(1024) unsigned char smem[];
   float* deq_s = reinterpret_cast<float*>(smem + C::DEQ_OFF);
   float* bias_s = reinterpret_cast<float*>(smem + C::BIAS_OFF);
@@ -492,22 +554,6 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
   const uint32_t bar_addr = w_addr + C::BAR_OFF;  // full[NS], then empty[NS]
   const int tid = threadIdx.x;
 
-  // weights in the K-major core-matrix layout: chunk kc of row n at
-  // (kc * COUT + n) * 16; neighbouring threads read the two chunks of one
-  // 32-byte sector
-  constexpr int KCH = C::K / 16;
-  for (int i = tid; i < COUT * KCH; i += THREADS) {
-    const int kc = 2 * (i / (2 * COUT)) + (i & 1), n = (i >> 1) % COUT;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     w_addr + (kc * COUT + n) * 16),
-                 "l"(a.wq + static_cast<size_t>(n) * C::K + kc * 16)
-                 : "memory");
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  for (int i = tid; i < COUT; i += THREADS) {
-    deq_s[i] = __ldg(a.deq + i);
-    bias_s[i] = a.bias != nullptr ? __ldg(a.bias + i) : 0.f;
-  }
   if (tid == 0) {
     for (int s = 0; s < C::NS; ++s) {
       mbar_init(bar_addr + 8 * s, 128);           // the producer's threads
@@ -515,10 +561,11 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  fence_async_shared();
   __syncthreads();
-  // programmatic dependent launch: the prologue above ran beside the
-  // previous kernel's tail; x, res and out are touched only after it ends
+  // programmatic dependent launch: the set-up above ran beside the previous
+  // kernel's tail; every read of device memory (the weights, deq, bias,
+  // inv_s, x, res) and every write follows its end, so any of them may come
+  // from the kernel just before on the stream
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
@@ -533,15 +580,15 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
   if (wg == 0) {
     // ---- producer: the tiles' staged rows in order, DEPTH rows of loads
     // in flight ahead of the row being quantized
-    const Producer<CIN, COUT, UP> P{a, first, nk, tiles_h, tiles_w, tid};
+    const Producer<CIN, COUT, UP, T> P{a, first, nk, tiles_h, tiles_w, tid};
     const float inv_s = __ldg(a.inv_s);
     RowJob ld, sj;  // the next row to load, the next row to store
     P.start(ld, 0);
     P.start(sj, 0);
-    uint4 lo[C::DEPTH][C::PER_ROW], hi[C::DEPTH][C::PER_ROW];
+    typename Producer<CIN, COUT, UP, T>::Item buf[C::DEPTH][C::PER_ROW];
 #pragma unroll
     for (int d = 0; d < C::DEPTH; ++d) {
-      P.load(ld, lo[d], hi[d]);
+      P.load(ld, buf[d]);
       P.next(ld);
     }
     while (sj.k < nk) {
@@ -557,13 +604,13 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
               P.copy_shared_rows(ring + ((sj.k - 1) % C::NS) * C::STAGE, st);
             }
           }
-          P.store(st, P.row(sj), lo[d], hi[d], inv_s);
+          P.store(st, P.row(sj), buf[d], inv_s);
           if (sj.i + 1 == sj.n) {  // the tile is staged
             fence_async_shared();
             mbar_arrive(bar_addr + 8 * s);
           }
           P.next(sj);
-          P.load(ld, lo[d], hi[d]);
+          P.load(ld, buf[d]);
           P.next(ld);
         }
       }
@@ -571,8 +618,28 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
     return;
   }
 
-  // ---- consumers: warpgroup 1 + c computes the tiles k = c, c + 2, ...,
-  // both rows of each, so that one's epilogue overlaps the other's wgmmas
+  // ---- consumers.  First the weights, in the K-major core-matrix layout
+  // (chunk kc of row n at (kc * COUT + n) * 16; neighbouring threads read
+  // the two chunks of one 32-byte sector), deq and bias: their copy runs
+  // while the producer stages the first tile
+  constexpr int KCH = C::K / 16;
+  for (int i = tid - 128; i < COUT * KCH; i += THREADS - 128) {
+    const int kc = 2 * (i / (2 * COUT)) + (i & 1), n = (i >> 1) % COUT;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     w_addr + (kc * COUT + n) * 16),
+                 "l"(a.wq + static_cast<size_t>(n) * C::K + kc * 16)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int i = tid - 128; i < COUT; i += THREADS - 128) {
+    deq_s[i] = __ldg(a.deq + i);
+    bias_s[i] = a.bias != nullptr ? __ldg(a.bias + i) : 0.f;
+  }
+  fence_async_shared();
+  asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS - 128) : "memory");
+
+  // warpgroup 1 + c computes the tiles k = c, c + 2, ..., both rows of
+  // each, so that one's epilogue overlaps the other's wgmmas
   const int c = wg - 1, wtid = tid & 127, lane = tid & 31;
   const int OH = UP ? 2 * a.H : a.H, OW = UP ? 2 * a.W : a.W;
   const uint64_t desc_a0 = make_desc(0, C::LBO_A, 128);
@@ -627,57 +694,67 @@ __global__ void __launch_bounds__(THREADS, 1) int8_conv_kernel(const Args a) {
   }
 }
 
-template <int CIN, int COUT, bool UP>
+template <int CIN, int COUT, bool UP, typename T>
 int set_smem() {
-  return static_cast<int>(cudaFuncSetAttribute(int8_conv_kernel<CIN, COUT, UP>,
+  return static_cast<int>(cudaFuncSetAttribute(int8_conv_kernel<CIN, COUT, UP, T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               Cfg<CIN, COUT, UP>::SMEM));
+                                               Cfg<CIN, COUT, UP, sizeof(T)>::SMEM));
 }
 
-template <int CIN, int COUT, bool UP>
-cudaError_t launch_one(const Args& a, int grid, cudaStream_t s) {
+template <int CIN, int COUT, bool UP, typename T>
+cudaError_t launch_one(const Args<T>& a, int grid, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = Cfg<CIN, COUT, UP>::SMEM;
+  cfg.dynamicSmemBytes = Cfg<CIN, COUT, UP, sizeof(T)>::SMEM;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int8_conv_kernel<CIN, COUT, UP>, a);
+  return cudaLaunchKernelEx(&cfg, int8_conv_kernel<CIN, COUT, UP, T>, a);
+}
+
+template <bool UP, typename T>
+cudaError_t launch_typed(const void* x, const void* wq, const void* inv_s, const void* deq,
+                         const void* bias, const void* res, void* out, int B, int H, int W,
+                         int cin, int cout, int relu, int grid, cudaStream_t s) {
+  const Args<T> a{static_cast<const T*>(x), static_cast<const int8_t*>(wq),
+                  static_cast<const float*>(inv_s), static_cast<const float*>(deq),
+                  static_cast<const float*>(bias), static_cast<const T*>(res),
+                  static_cast<T*>(out), B, H, W, relu};
+  if (cin == 64 && cout == 64) return launch_one<64, 64, UP>(a, grid, s);
+  if (cin == 64) return launch_one<64, 128, UP>(a, grid, s);
+  if (cout == 64) return launch_one<128, 64, UP>(a, grid, s);
+  return launch_one<128, 128, UP>(a, grid, s);
 }
 
 template <bool UP>
 int launch(const void* x, const void* wq, const void* inv_s, const void* deq,
            const void* bias, const void* res, void* out, int B, int H, int W, int cin,
-           int cout, int relu, void* stream) {
+           int cout, int relu, int f32, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long ntiles = static_cast<long long>(B) * cdiv(H, TR) * cdiv(W, TW);
   const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
-  const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
-               static_cast<const float*>(inv_s), static_cast<const float*>(deq),
-               static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
-               static_cast<__nv_bfloat16*>(out), B, H, W, relu};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (cin == 64 && cout == 64) err = launch_one<64, 64, UP>(a, grid, s);
-  else if (cin == 64) err = launch_one<64, 128, UP>(a, grid, s);
-  else if (cout == 64) err = launch_one<128, 64, UP>(a, grid, s);
-  else err = launch_one<128, 128, UP>(a, grid, s);
+  const cudaError_t err =
+      f32 ? launch_typed<UP, float>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin, cout,
+                                    relu, grid, s)
+          : launch_typed<UP, __nv_bfloat16>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin,
+                                            cout, relu, grid, s);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool UP>
+template <bool UP, typename T>
 int set_smem_all() {
-  int err = set_smem<64, 64, UP>();
-  if (!err) err = set_smem<64, 128, UP>();
-  if (!err) err = set_smem<128, 64, UP>();
-  if (!err) err = set_smem<128, 128, UP>();
+  int err = set_smem<64, 64, UP, T>();
+  if (!err) err = set_smem<64, 128, UP, T>();
+  if (!err) err = set_smem<128, 64, UP, T>();
+  if (!err) err = set_smem<128, 128, UP, T>();
   return err;
 }
 
@@ -689,24 +766,29 @@ int set_smem_all() {
 // int8_conv_init: raise the kernels' dynamic shared memory limit; once per
 // device, before the first launch.
 extern "C" int int8_conv_init() {
-  int err = set_smem_all<false>();
-  if (!err) err = set_smem_all<true>();
+  int err = set_smem_all<false, __nv_bfloat16>();
+  if (!err) err = set_smem_all<true, __nv_bfloat16>();
+  if (!err) err = set_smem_all<false, float>();
+  if (!err) err = set_smem_all<true, float>();
   return err;
 }
 
 // int8_conv3x3_launch / int8_up2x_launch: launch on `stream` without
-// synchronising; `bias` and `res` may be null.  Return cudaGetLastError()
-// (0 on success).  The wrapper has checked shapes, types and alignment.
+// synchronising; x, res and out are bf16, or f32 where `f32` is nonzero;
+// `bias` and `res` may be null.  Return cudaGetLastError() (0 on success).
+// The wrapper has checked shapes, types and alignment.
 extern "C" int int8_conv3x3_launch(const void* x, const void* wq, const void* inv_s,
                                    const void* deq, const void* bias, const void* res,
                                    void* out, int B, int H, int W, int cin, int cout,
-                                   int relu, void* stream) {
-  return launch<false>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin, cout, relu, stream);
+                                   int relu, int f32, void* stream) {
+  return launch<false>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin, cout, relu, f32,
+                       stream);
 }
 
 extern "C" int int8_up2x_launch(const void* x, const void* wq, const void* inv_s,
                                 const void* deq, const void* bias, const void* res,
                                 void* out, int B, int H, int W, int cin, int cout,
-                                int relu, void* stream) {
-  return launch<true>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin, cout, relu, stream);
+                                int relu, int f32, void* stream) {
+  return launch<true>(x, wq, inv_s, deq, bias, res, out, B, H, W, cin, cout, relu, f32,
+                      stream);
 }

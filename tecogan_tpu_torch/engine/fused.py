@@ -31,18 +31,12 @@ def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
     (B, H, W, 48) bf16, the carry.  ``kernel`` (3, 3, 64, 3) HWIO,
     ``bias`` (3,).
 
-    Dispatch, by device and dtype: a CPU tensor takes the plain version; a
-    CUDA tensor in bfloat16 takes the CUDA kernel (its contract is bf16);
-    a CUDA tensor in float32, the fp32 route, which is a precision
-    reference, takes the plain version on the card, as the JAX route
-    leaves its kernel for a direct XLA chain where the kernel does not
-    fit; any other dtype on the card raises."""
-    if feat_hr.device.type == "cpu" or feat_hr.dtype == torch.float32:
-        # contiguous NHWC, as the kernel returns it: the warp kernel reads it
-        return conv_out_s2d_reference(feat_hr, kernel, bias).to(torch.bfloat16).contiguous()
-    if feat_hr.dtype != torch.bfloat16:
-        raise ValueError(f"conv_out_s2d serves bfloat16 or float32 on the card, "
-                         f"got {feat_hr.dtype}")
+    A CPU tensor takes the plain version; any other tensor takes the CUDA
+    kernel: in bfloat16 (the served route) the tensor-core kernel, in
+    float32 (the fp32 route, a precision reference) the f32 kernel; it
+    raises on any other dtype."""
+    if feat_hr.device.type == "cpu":
+        return conv_out_s2d_reference(feat_hr, kernel, bias).to(torch.bfloat16)
     return conv_out_s2d_cuda(feat_hr, kernel, bias)
 
 

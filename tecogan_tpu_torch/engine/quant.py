@@ -9,7 +9,8 @@
 * Each conv is one launch of a hand kernel (``ops/kernels/int8_conv.py``):
   the input quantized while it is staged, s8 x s8 -> s32 on the tensor
   cores, and the dequantization, bias, ReLU and residual add in the
-  epilogue.  A CPU tensor takes the kernels' plain versions.
+  epilogue.  A CPU tensor takes the kernels' plain versions; on the card
+  the kernels serve bf16 and the fp32 route's float32.
 * The first layer and ``conv_out`` stay in the compute dtype, and so do
   the residual adds.
 
@@ -45,16 +46,20 @@ class _Layer(NamedTuple):
     transposed: bool
 
 
-def _conv_layers(model: Generator) -> Dict[str, _Layer]:
+def _layer_names(num_resblock: int) -> list:
     """The tail's conv layers in execution order, by JAX name
     (``Generator._features``' topology)."""
     names = []
-    for i in range(model.num_resblock):
+    for i in range(num_resblock):
         names += [f"resblock_{i}/Conv_0", f"resblock_{i}/Conv_1"]
-    names += ["up1", "trunk_rb1/Conv_0", "trunk_rb1/Conv_1", "trunk_rb2/Conv_0",
-              "trunk_rb2/Conv_1", "up2", "conv_hr"]
+    return names + ["up1", "trunk_rb1/Conv_0", "trunk_rb1/Conv_1", "trunk_rb2/Conv_0",
+                    "trunk_rb2/Conv_1", "up2", "conv_hr"]
+
+
+def _conv_layers(model: Generator) -> Dict[str, _Layer]:
+    """The tail's conv layers by JAX name, in execution order."""
     return {n: _Layer(model.get_submodule(n.replace("/", ".")), n in GENERATOR_TRANSPOSED)
-            for n in names}
+            for n in _layer_names(model.num_resblock)}
 
 
 def _chain(model: Generator, net: torch.Tensor, conv: Callable) -> torch.Tensor:
@@ -99,18 +104,6 @@ def _float_params(params) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to(torch.float32) for k, v in params.items()}
 
 
-def _tail_layer_names(sd: Mapping[str, torch.Tensor]) -> list:
-    """The tail's conv layers in execution order, by JAX name, as the
-    params give them (the JAX package's ``_conv_layers(params_g)``): as
-    many resblocks as the params hold."""
-    n = len({k.split(".")[0] for k in sd if k.startswith("resblock_")})
-    names = []
-    for i in range(n):
-        names += [f"resblock_{i}/Conv_0", f"resblock_{i}/Conv_1"]
-    return names + ["up1", "trunk_rb1/Conv_0", "trunk_rb1/Conv_1", "trunk_rb2/Conv_0",
-                    "trunk_rb2/Conv_1", "up2", "conv_hr"]
-
-
 def quantize_tail(params, act_maxes: Mapping[str, torch.Tensor],
                   device=None) -> QTail:
     """The qtail from the float32 params (the flax tree or the port's
@@ -118,13 +111,14 @@ def quantize_tail(params, act_maxes: Mapping[str, torch.Tensor],
     calibrated maxima, computed as the JAX package does, in float32:
     ``inv_s = 127 / m``, ``deq = (m / 127) * ws``, ``wq = round(w / ws)``.
 
-    Every conv layer of the params' tail is quantized; a layer missing
-    from ``act_maxes`` raises ``KeyError`` naming it.  The qtail lies on
-    ``device``, by default the device of the maxima (``calibrate_clip``
-    returns them on the model's device; the CPU for maxima that are not
-    tensors)."""
+    Every conv layer of the params' tail is quantized, as many resblocks
+    as the params hold (the JAX package's ``_conv_layers(params_g)``); a
+    layer missing from ``act_maxes`` raises ``KeyError`` naming it.  The
+    qtail lies on ``device``, by default the device of the maxima
+    (``calibrate_clip`` returns them on the model's device; the CPU for
+    maxima that are not tensors)."""
     sd = _float_params(params)
-    names = _tail_layer_names(sd)
+    names = _layer_names(len({k.split(".")[0] for k in sd if k.startswith("resblock_")}))
     missing = [n for n in names if n not in act_maxes]
     if missing:
         raise KeyError(f"act_maxes has no maximum for the tail layers {missing}")
@@ -159,31 +153,18 @@ def qtail_to(qtail: QTail, device) -> QTail:
             for name, layer in qtail.items()}
 
 
-def _plain(x: torch.Tensor) -> bool:
-    """The dispatch rule of the int8 layers, by device and dtype: a CPU
-    tensor takes the plain version; a CUDA tensor in bfloat16 takes the
-    CUDA kernel (its contract is bf16); a CUDA tensor in float32, the fp32
-    route, which is a precision reference, takes the plain version on the
-    card (the JAX tail takes any compute dtype); any other dtype on the
-    card raises."""
-    if x.device.type == "cpu" or x.dtype == torch.float32:
-        return True
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the int8 tail serves bfloat16 or float32 on the card, got {x.dtype}")
-    return False
-
-
 def int8_conv3x3(x, inv_s, wq, deq, bias=None, relu=False, residual=None):
-    """One int8 3x3 layer (``ops/kernels/int8_conv.py``), dispatched by
-    :func:`_plain`'s rule; the kernel raises on what it does not take."""
-    if _plain(x):
+    """One int8 3x3 layer (``ops/kernels/int8_conv.py``).  A CPU tensor
+    takes the plain version; any other tensor takes the CUDA kernel (bf16
+    or float32), which raises on what it does not take."""
+    if x.device.type == "cpu":
         return int8_conv3x3_reference(x, inv_s, wq, deq, bias, relu, residual)
     return int8_conv3x3_cuda(x, inv_s, wq, deq, bias, relu, residual)
 
 
 def int8_up2x(x, inv_s, wq, deq, bias=None, relu=False, residual=None):
     """One int8 2x transposed layer; dispatched as :func:`int8_conv3x3`."""
-    if _plain(x):
+    if x.device.type == "cpu":
         return int8_up2x_reference(x, inv_s, wq, deq, bias, relu, residual)
     return int8_up2x_cuda(x, inv_s, wq, deq, bias, relu, residual)
 

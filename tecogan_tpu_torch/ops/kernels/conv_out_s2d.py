@@ -7,9 +7,12 @@ kernel source is ``tecogan_tpu_torch/csrc/conv_out_s2d.cu``; its header
 says what bounds it and how it is laid out.  ``_build.load`` compiles it
 at first use; its plain C entry points are bound with ``ctypes``.
 
-Contract: ``feat`` ``(B, 4H, 4W, 64)`` bf16 contiguous NHWC, ``kernel``
+Contract: ``feat`` ``(B, 4H, 4W, 64)`` contiguous NHWC, ``kernel``
 ``(3, 3, 64, 3)`` f32 HWIO, ``bias`` ``(3,)`` f32 -> ``(B, H, W, 48)``
 bf16 with channel ``c*16 + a*4 + b`` holding sigmoid(conv)[4i+a, 4j+b, c].
+``feat`` in bf16 (the served route) takes the tensor-core kernel, which
+rounds the weights to bf16 as the JAX route does; in float32 (the fp32
+route, a precision reference) a kernel of f32 FMAs on the f32 weights.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def build() -> str:
     lib.conv_out_s2d_init.argtypes = []
     lib.conv_out_s2d_init.restype = ctypes.c_int
     fn = lib.conv_out_s2d_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return log
@@ -60,11 +63,13 @@ def build() -> str:
 def _check(feat: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
     if feat.device.type != "cuda":
         raise ValueError(f"conv_out_s2d kernel needs a CUDA tensor, got {feat.device}")
-    if feat.dtype != torch.bfloat16:
-        raise ValueError(f"feat must be bfloat16, got {feat.dtype}")
+    if feat.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"feat must be bfloat16 or float32, got {feat.dtype}")
     if feat.dim() != 4 or feat.shape[3] != 64 or feat.shape[1] % 4 or feat.shape[2] % 4:
         raise ValueError(f"feat must be (B, 4H, 4W, 64), got {tuple(feat.shape)}")
-    if feat.shape[0] > 65535 or feat.shape[1] // 4 > 2 * 65535:
+    # grid rows: bands of 17 LR rows (bf16), one LR row a block (f32)
+    rows = -(-feat.shape[1] // 4 // (17 if feat.dtype == torch.bfloat16 else 1))
+    if feat.shape[0] > 65535 or rows > 65535:
         raise ValueError(f"feat {tuple(feat.shape)} exceeds the launch grid")
     if not feat.is_contiguous():
         raise ValueError("feat must be contiguous NHWC (channels_last NCHW)")
@@ -100,7 +105,7 @@ def conv_out_s2d_cuda(feat: torch.Tensor, kernel: torch.Tensor,
             _ready_devices.add(feat.device.index)
         err = _lib.conv_out_s2d_launch(
             feat.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, H, W, torch.cuda.current_stream().cuda_stream)
+            B, H, W, int(feat.dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv_out_s2d launch failed with CUDA error {err}")
     launch_count += 1

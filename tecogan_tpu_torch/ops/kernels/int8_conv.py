@@ -23,11 +23,12 @@ JAX's lhs-dilated conv (dilation 2, padding (1, 2)) on that kernel, the
 The plain versions do the integer conv in float64 as a sum of one matrix
 product a tap: every partial sum is an integer below 2**53, so it is exact
 whatever the order (float32 is not: at 128 -> 128 a sum reaches
-127**2 * 1152 > 2**24).  The kernels take ``x`` in bf16 and return bf16,
-bit-equal to the plain version.  Each launch is one persistent block an SM
-that holds the layer's weights in shared memory and computes all Cout
-channels of its tiles with ``wgmma``; the source's header gives the design
-and its shared-memory budget for each (Cin, Cout).
+127**2 * 1152 > 2**24).  The kernels take ``x`` (and the residual) in
+bf16, the served route, or in float32, the fp32 route, and return that
+dtype, bit-equal to the plain version.  Each launch is one persistent
+block an SM that holds the layer's weights in shared memory and computes
+all Cout channels of its tiles with ``wgmma``; the source's header gives
+the design and its shared-memory budget for each (Cin, Cout).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ._build import CSRC, load
 
 SOURCE = CSRC / "int8_conv.cu"
 CHANNELS = (64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
 
 # Kernel launches, one count a kernel; only the CUDA wrappers add to them,
 # callers reset them to 0.
@@ -134,7 +136,7 @@ def build() -> str:
     lib.int8_conv_init.argtypes = []
     lib.int8_conv_init.restype = ctypes.c_int
     for fn in (lib.int8_conv3x3_launch, lib.int8_up2x_launch):
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     _lib = lib
     return log
@@ -146,8 +148,8 @@ def _check(x: torch.Tensor, inv_s: torch.Tensor, wq: torch.Tensor, deq: torch.Te
     """Raise on what the kernel does not take; return the output's shape."""
     if x.device.type != "cuda":
         raise ValueError(f"int8 conv kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"x must be bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     if x.dim() != 4 or x.shape[3] not in CHANNELS:
         raise ValueError(f"x must be (B, H, W, 64 or 128), got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -165,9 +167,9 @@ def _check(x: torch.Tensor, inv_s: torch.Tensor, wq: torch.Tensor, deq: torch.Te
         if t is not None and (tuple(t.shape) != (cout,) or t.dtype != torch.float32):
             raise ValueError(f"{name} must be ({cout},) float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if residual is not None and (residual.dtype != torch.bfloat16
+    if residual is not None and (residual.dtype != x.dtype
                                  or tuple(residual.shape) != out_shape):
-        raise ValueError(f"residual must be {out_shape} bfloat16, got "
+        raise ValueError(f"residual must be {out_shape} {x.dtype}, got "
                          f"{tuple(residual.shape)} {residual.dtype}")
     # x, wq and the residual are read in 16-byte pieces, the rest a value
     # (or two) at a time
@@ -184,7 +186,7 @@ def _check(x: torch.Tensor, inv_s: torch.Tensor, wq: torch.Tensor, deq: torch.Te
 
 def _run(up: bool, x, inv_s, wq, deq, bias, relu, residual) -> torch.Tensor:
     out = torch.empty(_check(x, inv_s, wq, deq, bias, residual, up),
-                      dtype=torch.bfloat16, device=x.device)
+                      dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     build()
@@ -199,7 +201,7 @@ def _run(up: bool, x, inv_s, wq, deq, bias, relu, residual) -> torch.Tensor:
         err = fn(x.data_ptr(), wq.data_ptr(), inv_s.data_ptr(), deq.data_ptr(),
                  None if bias is None else bias.data_ptr(),
                  None if residual is None else residual.data_ptr(), out.data_ptr(),
-                 B, H, W, cin, wq.shape[0], int(relu),
+                 B, H, W, cin, wq.shape[0], int(relu), int(x.dtype == torch.float32),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 conv launch failed with CUDA error {err}")

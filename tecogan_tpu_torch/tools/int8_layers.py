@@ -14,6 +14,9 @@ bias of the shape, and ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) on its
 im2col GEMM alone (M = B H W, K = 9 Cin, N = Cout).  Prints one line a
 measurement and writes all of them as JSON to ``--out``.  Fails without a
 GPU and on any disagreement.
+
+``chip_smoke.py`` phase 12 takes its layer table, inputs, work counts and
+yardsticks from here, so the two time the same thing.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import subprocess
 import sys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_INT8_OPS = 1979e12    # dense tensor cores, data sheet
 REPS = 20
 # (name, transposed, (B, H, W, Cin, Cout), relu, residual, launches a frame)
 LAYERS = [("resblock Conv_0", False, (1, 270, 480, 64, 64), True, False, 16),
@@ -38,14 +42,68 @@ LAYERS = [("resblock Conv_0", False, (1, 270, 480, 64, 64), True, False, 16),
           ("conv_hr", False, (1, 1080, 1920, 128, 64), True, False, 1)]
 
 
-def child(tree: str, yardsticks: bool) -> dict:
-    """Time the kernels of ``tree`` (run in a process of its own)."""
-    sys.path.insert(0, os.path.abspath(tree))
+def layer_inputs(dev, transposed: bool, shape: tuple, seed: int, dtype=None):
+    """A layer's inputs from ``seed`` on ``dev``: x (bf16, or ``dtype``),
+    its scale (m at 0.8 of max|x|: some values clamp), full-range int8
+    weights, deq, bias and a residual of the output's shape in x's dtype."""
+    import torch
+
+    B, H, W, cin, cout = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).to(dtype or torch.bfloat16)
+    inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
+    wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev, dtype=torch.int8)
+    deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
+    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+    oh, ow = (2 * H, 2 * W) if transposed else (H, W)
+    res = torch.randn((B, oh, ow, cout), generator=g, device=dev).to(x.dtype)
+    return x, inv_s, wq, deq, bias, res
+
+
+def layer_work(x, out, wq, residual: bool) -> tuple:
+    """(bytes, int8 operations) a layer needs: x read once, the output
+    written once (and the residual read), the weights, deq and bias."""
+    B, H, W, cin = x.shape
+    moved = (x.numel() + out.numel() * (2 if residual else 1)) * x.element_size()
+    return moved + wq.numel() + wq.shape[0] * 8, 2 * 9 * cin * wq.shape[0] * B * H * W
+
+
+def bound_ms(bytes_moved: float, ops: float) -> tuple:
+    """(ms, 'bytes' or 'operations'): the least time an H100 needs."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def yardsticks(x, wq, bias, transposed: bool, reps: int) -> tuple:
+    """(ms of the bf16 cuDNN conv + bias of the layer's shape, ms of
+    ``torch._int_mm`` on its im2col GEMM alone): neither is the same
+    function (PyTorch has no int8 conv)."""
     import torch
     import torch.nn.functional as F
 
+    from tecogan_tpu_torch.utils.timing import events_ms, int_mm_ms
+
+    B, H, W, cin = x.shape
+    cout = wq.shape[0]
+    xc = x.permute(0, 3, 1, 2).bfloat16()
+    b16 = bias.bfloat16()
+    if transposed:
+        wt = wq.permute(3, 0, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
+        cudnn = events_ms(lambda: F.conv_transpose2d(xc, wt, b16, stride=2, padding=1,
+                                                     output_padding=1), reps)
+    else:
+        wt = wq.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
+        cudnn = events_ms(lambda: F.conv2d(xc, wt, b16, padding=1), reps)
+    return cudnn, int_mm_ms(B * H * W, 9 * cin, cout, reps, x.device)
+
+
+def child(tree: str, yardsticks_too: bool) -> dict:
+    """Time the kernels of ``tree`` (run in a process of its own)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
     from tecogan_tpu_torch.ops.kernels import int8_conv as q
-    from tecogan_tpu_torch.utils.timing import card, events_ms, graph_ms
+    from tecogan_tpu_torch.utils.timing import card, graph_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("int8_layers needs a CUDA GPU")
@@ -54,43 +112,22 @@ def child(tree: str, yardsticks: bool) -> dict:
     q.build()
     smi = card()
     rows = []
-    for i, (name, up, (B, H, W, cin, cout), relu, residual, n) in enumerate(LAYERS):
-        g = torch.Generator(device=dev).manual_seed(100 + i)
-        x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).bfloat16()
-        inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
-        wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev,
-                           dtype=torch.int8)
-        deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
-        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-        oh, ow = (2 * H, 2 * W) if up else (H, W)
-        res = (torch.randn((B, oh, ow, cout), generator=g, device=dev).bfloat16()
-               if residual else None)
+    for i, (name, up, shape, relu, residual, n) in enumerate(LAYERS):
+        x, inv_s, wq, deq, bias, res = layer_inputs(dev, up, shape, 100 + i)
+        res = res if residual else None
         kernel, plain = ((q.int8_up2x_cuda, q.int8_up2x_reference) if up else
                          (q.int8_conv3x3_cuda, q.int8_conv3x3_reference))
         got = kernel(x, inv_s, wq, deq, bias, relu, res)
         if not torch.equal(got, plain(x, inv_s, wq, deq, bias, relu, res)):
             raise SystemExit(f"{tree}: {name} differs from its plain version")
         ms = graph_ms(lambda: kernel(x, inv_s, wq, deq, bias, relu, res), REPS)
-        bytes_moved = (x.numel() + got.numel() * (2 if residual else 1)) * 2 + wq.numel() + cout * 8
-        ops = 2 * 9 * cin * cout * B * H * W
+        bytes_moved, ops = layer_work(x, got, wq, residual)
         row = {"layer": name, "kernel": "int8_up2x" if up else "int8_conv3x3",
-               "shape": [B, H, W, cin, cout], "launches_a_frame": n, "ms": ms,
-               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-               "tops": ops / ms / 1e9}
-        if yardsticks:
-            from tecogan_tpu_torch.utils.timing import int_mm_ms
-
-            xc = x.permute(0, 3, 1, 2)
-            wt = torch.randn((cin, cout, 3, 3) if up else (cout, cin, 3, 3), generator=g,
-                             device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
-            b16 = bias.bfloat16()
-            conv = ((lambda: F.conv_transpose2d(xc, wt, b16, stride=2, padding=1,
-                                                output_padding=1)) if up else
-                    (lambda: F.conv2d(xc, wt, b16, padding=1)))
-            row["cudnn_bf16_ms"] = events_ms(conv, REPS)
-            row["int_mm_ms"] = int_mm_ms(B * H * W, 9 * cin, cout, REPS, dev)
+               "shape": list(shape), "launches_a_frame": n, "ms": ms,
+               "bound_ms": bound_ms(bytes_moved, ops)[0], "tops": ops / ms / 1e9}
+        if yardsticks_too:
+            row["cudnn_bf16_ms"], row["int_mm_ms"] = yardsticks(x, wq, bias, up, REPS)
             row["int_mm_tops"] = ops / row["int_mm_ms"] / 1e9
-            del xc, wt
         rows.append(row)
         del x, wq, res, got
     return {"tree": tree, "card": smi, "torch": torch.__version__, "layers": rows}

@@ -93,12 +93,12 @@ def main(argv=None) -> dict:
     ref = kmod.conv_out_s2d_reference(feat.float(), w.bfloat16().float(), b)
     for cut in CUTS["conv_out_s2d"]:
         lib = libs["conv_out_s2d", cut]
-        lib.conv_out_s2d_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        lib.conv_out_s2d_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         if lib.conv_out_s2d_init() != 0:
             raise RuntimeError(f"conv_out_s2d {cut}: init failed")
         ms = graph_ms(lambda: lib.conv_out_s2d_launch(
-            feat.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 270, 480,
+            feat.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 270, 480, 0,
             stream()), REPS)
         if cut == "kernel":
             err = float((out.float() - ref).abs().max())

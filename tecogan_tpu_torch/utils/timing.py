@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -27,6 +28,21 @@ def events_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_issue_ms(fn, reps: int) -> float:
+    """Mean host time to issue ``fn`` over ``reps`` calls back to back, no
+    synchronise between them, after a warm-up call with the device idle:
+    the host's side of a launch, which sets the pace when it exceeds the
+    device's time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return t * 1e3
 
 
 def graph_ms(fn, reps: int) -> float:

@@ -127,6 +127,57 @@ def test_kernel_tiling_model_matches_reference(rng, shape, tiling):
     torch.testing.assert_close(got, want, rtol=0, atol=TOL)
 
 
+def _f32_kernel_model(feat, k, b, lrc):
+    """A torch transliteration, in fp32, of the fp32 route's kernel
+    (``conv_out_s2d_f32_kernel``): a block per LR row and ``lrc`` LR
+    columns stages 6 HR rows of ``4 lrc + 2`` pixels (zero outside the
+    image), one thread per HR pixel (a, xl) sums its 9 taps over the f32
+    weights (not rounded), and the pixels inside the image write
+    sigmoid(sum + bias) to channel ``c*16 + a*4 + x % 4`` of LR pixel
+    ``x // 4``."""
+    B, H4, W4, K = feat.shape
+    H, W = H4 // 4, W4 // 4
+    sw = 4 * lrc + 2
+    out = torch.full((B, H, W, 48), float("nan"))
+    for bi in range(B):
+        for i in range(H):
+            for j0 in range(0, W, lrc):
+                staged = torch.zeros(6, sw, K)
+                for r in range(6):
+                    gy = 4 * i - 1 + r
+                    gx = 4 * j0 - 1 + torch.arange(sw)
+                    ok = (gx >= 0) & (gx < W4)
+                    if 0 <= gy < H4:
+                        staged[r, ok] = feat[bi, gy, gx[ok]]
+                acc = torch.zeros(4, 4 * lrc, 3)
+                for u in range(3):
+                    for v in range(3):
+                        acc += staged[u:u + 4, v:v + 4 * lrc] @ k[u, v]
+                y = torch.sigmoid(acc + b)  # (a, xl, c)
+                x = 4 * j0 + torch.arange(4 * lrc)
+                for a in range(4):
+                    for xl in torch.nonzero(x < W4).flatten().tolist():
+                        xx = int(x[xl])
+                        for c in range(3):
+                            out[bi, i, xx // 4, c * 16 + a * 4 + xx % 4] = y[a, xl, c]
+    return out
+
+
+# the f32 kernel's LR columns a block, and a small one with ragged tails
+F32_TILINGS = {"kernel": 16, "small": 3}
+
+
+@pytest.mark.parametrize("tiling", list(F32_TILINGS))
+@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 12, 4 * 37, 64), (1, 4, 4, 64)])
+def test_f32_kernel_tiling_model_matches_reference(rng, shape, tiling):
+    """The fp32 route's kernel sums on the f32 weights as they are: its
+    tiling holds the plain version in f32 to summation order."""
+    feat, k, b = _inputs(rng, shape)
+    feat, k, b = torch.from_numpy(feat), torch.from_numpy(k), torch.from_numpy(b)
+    got = _f32_kernel_model(feat, k, b, F32_TILINGS[tiling])
+    torch.testing.assert_close(got, kmod.conv_out_s2d_reference(feat, k, b), rtol=0, atol=TOL)
+
+
 @pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 24, 36, 64)])
 def test_reference_on_bf16_weights_matches_pallas_bf16(rng, shape):
     """The kernel rounds its f32 weights to bf16, as the JAX route casts

@@ -24,6 +24,7 @@ from tecogan_tpu_torch.engine.quant import qtail_to, quantize_tail, tail_feature
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
 from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
 from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+from tecogan_tpu_torch.tools.int8_layers import layer_inputs
 from tecogan_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                              generator_state_dict_from_jax)
 
@@ -63,9 +64,9 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, shape, seed=0):
+def _inputs(dev, shape, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    feat = torch.rand(shape, generator=g, device=dev).bfloat16()
+    feat = torch.rand(shape, generator=g, device=dev).to(dtype)
     k = torch.randn((3, 3, 64, 3), generator=g, device=dev) * 0.05
     b = torch.randn((3,), generator=g, device=dev) * 0.1
     return feat, k, b
@@ -92,32 +93,19 @@ def _models(dev, cfg, seed=0, cpu_precision="fp32"):
     return gpu.eval(), cpu.eval(), sd
 
 
-def _int8_inputs(dev, B, H, W, cin, cout, up=False, seed=0):
-    """A bf16 input, its scale (m at 0.8 of max|x|, so some values clamp),
-    full-range int8 weights, deq, bias and a residual of the output's
-    shape, on ``dev``."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn((B, H, W, cin), generator=g, device=dev) * 0.5).bfloat16()
-    inv_s = torch.tensor(127.0, device=dev) / (0.8 * x.float().abs().max())
-    wq = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device=dev,
-                       dtype=torch.int8)
-    deq = torch.rand((cout,), generator=g, device=dev) * 1e-4 + 1e-6
-    bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-    oh, ow = (2 * H, 2 * W) if up else (H, W)
-    res = torch.randn((B, oh, ow, cout), generator=g, device=dev).bfloat16()
-    return x, inv_s, wq, deq, bias, res
-
-
-# the last spans 5 strips and 5 bands of the kernel's tiling, with ragged
-# tails in both
+# the last spans 5 strips and 5 bands of the bf16 kernel's tiling, with
+# ragged tails in both
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 36, 44, 64),
                                    (1, 148, 212, 64), (3, 4, 4, 64),
                                    (2, 4 * 67, 4 * 133, 64)])
-def test_kernel_matches_reference(cuda, shape):
-    """Against the plain version on the bf16-rounded weights the kernel
-    computes with, so that the bars measure its arithmetic."""
-    feat, k, b = _inputs(cuda, shape)
-    ref = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
+def test_kernel_matches_reference(cuda, shape, dtype):
+    """Against the plain version in f32 on the weights the kernel computes
+    with, so that the bars measure its arithmetic: rounded to bf16 for bf16
+    features, as they are for the fp32 route's f32 kernel."""
+    feat, k, b = _inputs(cuda, shape, dtype=dtype)
+    kw = k.bfloat16().float() if dtype == torch.bfloat16 else k
+    ref = kmod.conv_out_s2d_reference(feat.float(), kw, b)
     kmod.launch_count = 0
     got = kmod.conv_out_s2d_cuda(feat, k, b)
     torch.cuda.synchronize()
@@ -130,7 +118,7 @@ def test_kernel_matches_reference(cuda, shape):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     feat, k, b = _inputs(cuda, (1, 16, 16, 64))
     bad = {
-        "float32 features": (feat.float(), k, b),
+        "float16 features": (feat.half(), k, b),
         "NCHW memory": (feat.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), k, b),
         "channel count": (feat[..., :32].contiguous(), k, b),
         "HR not a multiple of 4": (feat[:, :14].contiguous(), k, b),
@@ -247,13 +235,20 @@ INT8_UP_SHAPES = [(1, 270, 480, 64, 64, True, False), (1, 540, 960, 128, 128, Tr
                   (3, 4, 129, 64, 64, True, True), (1, 3, 70, 128, 64, False, True)]
 
 
-@pytest.mark.parametrize("up,shape", [(False, s) for s in INT8_CONV_SHAPES]
-                         + [(True, s) for s in INT8_UP_SHAPES])
-def test_int8_kernel_is_bit_equal_to_plain(cuda, up, shape):
+# the fp32 route's instantiations, float32 activations in and out
+INT8_F32_SHAPES = [(1, 37, 53, 64, 64, False, True), (2, 3, 129, 128, 128, True, True),
+                   (1, 1, 130, 128, 64, True, False), (3, 7, 70, 64, 128, False, True)]
+
+
+@pytest.mark.parametrize("up,shape,dtype", [(False, s, torch.bfloat16) for s in INT8_CONV_SHAPES]
+                         + [(True, s, torch.bfloat16) for s in INT8_UP_SHAPES]
+                         + [(up, s, torch.float32) for s in INT8_F32_SHAPES
+                            for up in (False, True)])
+def test_int8_kernel_is_bit_equal_to_plain(cuda, up, shape, dtype):
     """Each int8 kernel against its plain version (float64 integer sums)
-    on the same inputs: bit-equal, one launch."""
+    on the same inputs, in x's dtype: bit-equal, one launch."""
     B, H, W, cin, cout, relu, residual = shape
-    x, inv_s, wq, deq, bias, res = _int8_inputs(cuda, B, H, W, cin, cout, up)
+    x, inv_s, wq, deq, bias, res = layer_inputs(cuda, up, (B, H, W, cin, cout), 0, dtype)
     res = res if residual else None
     kernel, plain = ((qmod.int8_up2x_cuda, qmod.int8_up2x_reference) if up else
                      (qmod.int8_conv3x3_cuda, qmod.int8_conv3x3_reference))
@@ -262,14 +257,37 @@ def test_int8_kernel_is_bit_equal_to_plain(cuda, up, shape):
     torch.cuda.synchronize()
     assert (qmod.conv3x3_launch_count, qmod.up2x_launch_count) == ((0, 1) if up else (1, 0))
     want = plain(x, inv_s, wq, deq, bias, relu, res)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == dtype and got.shape == want.shape
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
 
 
+@pytest.mark.parametrize("up", [False, True])
+def test_int8_kernel_reads_inputs_made_just_before(cuda, up):
+    """Under programmatic dependent launch every input may be written by
+    the kernel just before on the stream: weights, deq, bias or inv_s made
+    on the card right before each launch give the plain version's output."""
+    x = layer_inputs(cuda, up, (1, 40, 200, 128, 128), 9)[0]
+    kernel, plain = ((qmod.int8_up2x_cuda, qmod.int8_up2x_reference) if up else
+                     (qmod.int8_conv3x3_cuda, qmod.int8_conv3x3_reference))
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for i in range(8):
+        wq = torch.randint(-127, 128, (128, 3, 3, 128), generator=g, device=cuda,
+                           dtype=torch.int8)
+        inv_s = (torch.rand((), generator=g, device=cuda) + 1.0) * 40.0
+        deq = torch.rand((128,), generator=g, device=cuda) * 1e-4 + 1e-6
+        bias = torch.randn((128,), generator=g, device=cuda) * 0.1
+        # the last kernel before each launch writes one of the inputs
+        last = (wq, inv_s, deq, bias)[i % 4]
+        last.copy_(last.flip(0) if last.dim() else last + 1.0)
+        got = kernel(x, inv_s, wq, deq, bias, True, None)
+        want = plain(x, inv_s, wq, deq, bias, True, None)
+        assert torch.equal(got, want), (i, float((got.float() - want.float()).abs().max()))
+
+
 def test_int8_kernels_refuse_what_they_do_not_take(cuda):
-    x, inv_s, wq, deq, bias, res = _int8_inputs(cuda, 1, 6, 10, 64, 64)
+    x, inv_s, wq, deq, bias, res = layer_inputs(cuda, False, (1, 6, 10, 64, 64), 0)
     bad = {
-        "float32 x": (x.float(), inv_s, wq, deq, bias, False, None),
+        "float16 x": (x.half(), inv_s, wq, deq, bias, False, None),
         "32 channels": (x[..., :32].contiguous(), inv_s, wq[..., :32].contiguous(), deq,
                         bias, False, None),
         "96 output channels": (x, inv_s, wq[:32].repeat(3, 1, 1, 1), deq.repeat(2)[:96],
@@ -357,10 +375,10 @@ FP32_FUSED_DB = 50.0
 
 
 def test_fp32_routes_on_the_card_match_the_cpu(cuda):
-    """The fused and the int8 route in fp32 on the card: by dtype,
-    conv_out_s2d and the int8 convs take their plain versions there (no
-    launch; the warp kernel still reads the bf16 carry), and every frame
-    matches the CPU's.  The bf16 route still launches all four kernels."""
+    """The fused and the int8 route in fp32 on the card, through the
+    kernels' f32 instantiations (the warp kernel reads the bf16 carry):
+    every frame matches the CPU's.  The bf16 route launches all four
+    kernels as well."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TecoConfig(num_resblock=2, precision="fp32", bug_parity=False)
     gpu_model, cpu_model, sd = _models(cuda, cfg)
@@ -379,7 +397,7 @@ def test_fp32_routes_on_the_card_match_the_cpu(cuda):
     infer = build_clip_inference(cfg)
     reset()
     got = infer(gpu_model, clip.to(cuda)).cpu()
-    assert counts() == (0, 0, 0, T - 1)
+    assert counts() == (0, 0, T, T - 1)
     want = infer(cpu_model, clip)
     fused_db = [_db(got[:, t], want[:, t]) for t in range(T)]
 
@@ -387,7 +405,7 @@ def test_fp32_routes_on_the_card_match_the_cpu(cuda):
     qtail = prepare(gpu_model, sd, clip, frames=T)
     reset()
     got = qinfer(gpu_model, qtail, clip.to(cuda)).cpu()
-    assert counts() == (0, 0, 0, T - 1)
+    assert counts() == (T * 9, T * 2, T, T - 1)
     want_int8 = qinfer(cpu_model, qtail_to(qtail, "cpu"), clip)
     # as the bf16 int8 route (test_int8_clip_on_the_card_matches_the_cpu):
     # a value across a quantizer's rounding boundary moves a whole step, so

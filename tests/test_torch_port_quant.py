@@ -333,6 +333,49 @@ def test_kernel_tiling_model_matches_plain(rng, shape, up):
     np.testing.assert_array_equal(_kernel_model(xq, wq, up), want)
 
 
+def _producer_quantize(x, inv_s):
+    """The producer's quantizer on one pixel's channels, bit by bit: the
+    16-byte loads as 32-bit words (two bf16 a word, low half first, or one
+    f32), each value scaled and clamped in f32, then rounded half to even
+    by adding 1.5 * 2**23, whose low byte is the two's-complement s8."""
+    words = x.contiguous().view(torch.int32).numpy().view(np.uint32).reshape(-1)
+    if x.dtype == torch.bfloat16:
+        vals = np.stack([words << 16, words & 0xFFFF0000], axis=1).reshape(-1)
+    else:
+        vals = words
+    v = vals.astype(np.uint32).view(np.float32)
+    t = np.clip(v * np.float32(inv_s), np.float32(-127), np.float32(127))
+    return ((t + np.float32(12582912.0)).view(np.uint32) & 0xFF).astype(np.uint8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_producer_quantizer_is_quantize(rng, dtype):
+    """The kernels' staging quantizer, for both activation types, gives
+    ``quantize``'s s8 values byte for byte, clamped values and halves
+    included."""
+    x = torch.from_numpy(rng.normal(0, 40, (4, 64)).astype(np.float32))
+    x[0, :6] = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 126.5])  # ties to even
+    x = x.to(dtype)
+    want = int8_conv.quantize(x, torch.tensor(1.0)).view(torch.uint8).numpy().reshape(-1)
+    np.testing.assert_array_equal(_producer_quantize(x, 1.0), want)
+
+
+def test_f32_epilogue_lanes_cover_the_tile():
+    """The f32 epilogue: lane (warp, lane) stores its own channel pairs
+    8 j + 2 (lane % 4) of pixels m and m + 8; every output element of a
+    64 x Cout tile is written exactly once."""
+    for cout in (64, 128):
+        owner = np.zeros((TW, cout), np.int64)
+        for warp in range(4):
+            for lane in range(32):
+                for h in range(2):
+                    m = 16 * warp + lane // 4 + 8 * h
+                    for j in range(cout // 8):
+                        c = 8 * j + 2 * (lane % 4)
+                        owner[m, c:c + 2] += 1
+        assert (owner == 1).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_is_quantize_conv_dequantize(rng, dtype):
     """One whole plain layer: quantize (round half to even, clamp at

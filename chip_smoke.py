@@ -11,8 +11,8 @@ into ``build_clip_inference``, ``build_chunked_inference`` and
 (``init_state`` / ``state_from_params`` + ``build_train_step``) at the
 paper's config.  Phases:
 
-1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
-   versions;
+1. the card (``nvidia-smi`` name and power limit), the torch / CUDA
+   versions, and whether ``cv2``, ``imageio`` and ``PIL`` can be imported;
 2. the kernels' build time;
 3. the ``conv_out_s2d`` kernel against its plain PyTorch version (fp32,
    TF32 off) on the same bf16 inputs and the bf16-rounded weights the
@@ -75,14 +75,34 @@ paper's config.  Phases:
    frame against the bf16 trunk's, TOP/s and the share of 1979 TOP/s;
    at a small width with phase 5's scaled weights, the int8 clip against
    the bf16 clip above 35 dB; chunked int8 on a uint8 clip bit-equal to
-   the one-shot int8 clip.
+   the one-shot int8 clip;
+13. adaptation and evaluation: (a) ``adapt_generator`` at the CLI's
+   defaults (16 resblocks bf16, 40 frames of 268 x 480, RNN_N 10,
+   max_batch 16, consistency 2.0, the guard) for 4 steps, scored by the
+   guard at steps 2 and 4: finite losses, moved params, the JAX report's
+   keys, ms a step, peak memory, remat off when the reckoned activations
+   fit (measured per frame on a 2-frame unroll), else on; (b) the adapted
+   params served by the fused bf16 clip and by the int8 clip after
+   ``prepare`` on them, the launch counts of all four kernels, and at
+   phase 5's scaled small width the adapted int8 clip against the adapted
+   bf16 clip above 35 dB; (c) ``lr_consistency_refine`` of the 1080p SR
+   clip, 10 iterations: the LR-consistency error falls, its ms; (d)
+   ``psnr_per_frame``, ``ssim`` and the VGG-19 ``vgg_perceptual_distance``
+   / ``lpips_distance`` between the fused and exact routes' 1080p frames,
+   each one's ms; (e) the card against the CPU: tiny fp32 adaptation (3
+   guarded steps) losses within 1e-4 relative and base PSNR within 1e-4
+   dB, ``ssim`` of two 1080p frames with TF32 on globally within 1e-6, VGG
+   end points at 64 x 64 within 1e-4 of each layer's largest; (f) the NHWC
+   fused route at ``warp_group`` 2 and 8 bit-equal to the s2d route, and
+   at 8 with an odd LR width (the bf16 frame warp) above the 40 dB bar
+   against the exact fp32 route.
 
-Phases 9-11 run no hand kernel: training runs cuDNN convs and
+Phases 9-11 and 13a, c-e run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 kernels' times are a frame's: the
 sum over the frame's launches at each layer shape (37 and 2).
 
-Phases 7 and 8 hold cuDNN to deterministic algorithms: the transposed
+Phases 7, 8 and 13f hold cuDNN to deterministic algorithms: the transposed
 convs' default algorithm may sum in a different order from one call to
 the next, and these phases compare paths bit for bit.
 
@@ -91,6 +111,7 @@ the card's line is the kernels' JSON record; the last line of standard
 output is the JSON device record.
 """
 
+import importlib.util
 import json
 import os
 import statistics
@@ -528,6 +549,293 @@ def int8_phase(dev, smi, cfg, model, params, clip, infer, small, small_model, sm
     return [recs[False], recs[True]]
 
 
+# phase 13: adaptation and evaluation at full width
+ADAPT_T, ADAPT_HW = 40, (268, 480)   # the CLI's adapt_frames; 270p cropped to /4
+ADAPT_STEPS, ADAPT_EVAL_EVERY = 4, 2  # the guard scores the base, then at steps 2 and 4
+SERVE_T = 8
+REFINE_ITERS = 10
+VGG_LAYERS = ("vgg_19/conv2_2", "vgg_19/conv3_4", "vgg_19/conv4_4")
+SSIM_CARD_CPU_TOL = 1e-6
+VGG_CARD_CPU_RTOL = 1e-4
+MEMORY_SHARE = 0.75                  # of the card's memory, for the no-remat reckoning
+
+
+def smooth_clip(T: int, H: int, W: int, seed: int) -> torch.Tensor:
+    """(T, H, W, 3) float32 in [0.05, 0.35] on the CPU: a random field at
+    1/8 scale, bilinear x8, panning one pixel a frame (content an
+    adaptation step can fit, unlike noise)."""
+    g = torch.Generator().manual_seed(seed)
+    field = torch.rand((1, 3, H // 8 + 2, (W + T) // 8 + 2), generator=g)
+    big = F.interpolate(field, scale_factor=8, mode="bilinear", align_corners=False)
+    frames = [big[0, :, :H, t:t + W] for t in range(T)]
+    return torch.stack(frames).permute(0, 2, 3, 1).contiguous() * 0.3 + 0.05
+
+
+def adapt_phase(dev, smi, small, small_model, small_sd, small_clip, small_bf16,
+                exact_small) -> None:
+    """Phase 13: adaptation, its serving through every hand kernel, the
+    refine, the metrics and VGG-19, the card against the CPU, and the NHWC
+    fused route."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.adapt import adapt_generator, lr_consistency_refine
+    from tecogan_tpu_torch.engine.inference import (build_clip_inference,
+                                                    build_quantized_clip_inference)
+    from tecogan_tpu_torch.engine.losses import generator_unroll
+    from tecogan_tpu_torch.engine.state import init_generator, model_defs, train_tensors
+    from tecogan_tpu_torch.models.vgg import init_vgg, vgg19_features, vgg_model
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.ops.metrics import (lpips_distance, psnr_per_frame, ssim,
+                                               vgg_perceptual_distance)
+    from tecogan_tpu_torch.ops.resize import resize_bilinear_aa
+    from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
+
+    JAX_REPORT_KEYS = {"holdout_windows", "holdout_overlaps_train", "base_psnr_db",
+                       "base_ssim", "chosen_psnr_db", "chosen_ssim", "chosen_step",
+                       "adapted_served"}
+
+    def reset_counts():
+        kmod.launch_count = wmod.launch_count = 0
+        qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+
+    def counts():
+        return {"int8_conv3x3": qmod.conv3x3_launch_count, "int8_up2x": qmod.up2x_launch_count,
+                "conv_out_s2d": kmod.launch_count, "warp_s2d": wmod.launch_count}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- 13a. adapt_generator at the CLI's defaults, full width
+    cfg = TecoConfig(precision="bf16", bug_parity=False)  # 16 resblocks, RNN_N 10
+    H, W = ADAPT_HW
+    clip = smooth_clip(ADAPT_T, H, W, seed=13)
+    base = train_tensors(generator_state_dict_from_jax(
+        init_generator(cfg, torch.Generator().manual_seed(0))), dev)
+    # reckon the no-remat memory: the consistency term's two serving
+    # windows of RNN_N frames hold their activations until its backward
+    # (the internal term's 16 windows at 1/16 the pixels hold about half)
+    gen = model_defs(cfg, device=dev)
+    probe = clip[:2].permute(0, 3, 1, 2)[None].to(dev)
+    leaves = {k: v.detach().requires_grad_() for k, v in base.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = generator_unroll(gen, leaves, probe, cfg.replace(bug_parity=False)).gen_outputs
+    torch.cuda.synchronize()
+    per_frame = (torch.cuda.max_memory_allocated(dev) - before) / 2
+    del out, leaves, probe
+    serve_frames = max(1, 16 // 8) * cfg.RNN_N
+    reckoned = per_frame * serve_frames
+    total = torch.cuda.get_device_properties(dev).total_memory
+    remat = reckoned > MEMORY_SHARE * total
+    cfg = cfg.replace(remat=remat)
+    losses, stamps = [], []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapted, report = adapt_generator(cfg, base, clip, steps=ADAPT_STEPS, learning_rate=1e-4,
+                                      consistency=2.0, max_batch=16, guard=True,
+                                      eval_every=ADAPT_EVAL_EVERY, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    require(len(losses) == ADAPT_STEPS and all(np.isfinite(v) for v in losses),
+            f"[13a] adaptation losses {losses}")
+    require(set(report) == JAX_REPORT_KEYS, f"[13a] report keys {sorted(report)}")
+    require(report["adapted_served"] and report["chosen_step"] > 0,
+            f"[13a] the guard kept the base params: {report}")
+    require(adapted.keys() == base.keys() and all(v.dtype == torch.float32 for v in adapted.values())
+            and any(not torch.equal(adapted[k], base[k]) for k in base),
+            "[13a] the adapted params did not move")
+    print(f"[13a] adapt_generator, {cfg.num_resblock} resblocks bf16, {ADAPT_T} frames of {H}x{W}, RNN_N "
+          f"{cfg.RNN_N}, max_batch 16, consistency 2.0, guard, {ADAPT_STEPS} steps: losses "
+          f"{[round(v, 6) for v in losses]} | {statistics.median(step_ms):.1f} ms a step "
+          f"(median of steps 1-{ADAPT_STEPS - 1}, guard scoring included; step 0 "
+          f"{(stamps[0] - t0) * 1e3:.1f} ms with the pools and the base score), "
+          f"{wall:.2f} s in all | remat {'on' if remat else 'off'}: reckoned "
+          f"{reckoned / 2**30:.1f} GiB for {serve_frames} serving frames without it "
+          f"({per_frame / 2**30:.2f} GiB a frame, measured on a 2-frame unroll) against "
+          f"{MEMORY_SHARE:.0%} of {total / 2**30:.1f} GiB | peak device memory "
+          f"{peak / 2**30:.2f} GiB | report {report} | {smi}", flush=True)
+    del base, gen
+
+    # -- 13b. serve the adapted params: bf16 fused, then int8 after a fresh calibration
+    model = model_defs(cfg, device=dev)
+    model.load_state_dict(adapted)
+    model.eval()
+    lr8 = clip[None, :SERVE_T].to(dev)
+    infer = build_clip_inference(cfg)
+    infer(model, lr8)  # warm-up
+    reset_counts()
+    fused_out, fused_ms = timed(lambda: infer(model, lr8))
+    bf16_counts = counts()
+    prepare, qinfer = build_quantized_clip_inference(cfg)
+    qtail = prepare(model, adapted, lr8, frames=SERVE_T)
+    qinfer(model, qtail, lr8)  # warm-up
+    reset_counts()
+    q_out, q_ms = timed(lambda: qinfer(model, qtail, lr8))
+    q_counts = counts()
+    n = cfg.num_resblock
+    shape = (1, SERVE_T, 4 * H, 4 * W, 3)
+    for name, out in (("bf16", fused_out), ("int8", q_out)):
+        require(tuple(out.shape) == shape and bool(torch.isfinite(out).all())
+                and float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                f"[13b] adapted {name} clip {tuple(out.shape)}")
+    require(bf16_counts == {"int8_conv3x3": 0, "int8_up2x": 0, "conv_out_s2d": SERVE_T,
+                            "warp_s2d": SERVE_T - 1}, f"[13b] bf16 launches {bf16_counts}")
+    require(q_counts == {"int8_conv3x3": SERVE_T * (2 * n + 5), "int8_up2x": 2 * SERVE_T,
+                         "conv_out_s2d": SERVE_T, "warp_s2d": SERVE_T - 1},
+            f"[13b] int8 launches {q_counts}")
+    # phase 5's scaled small width: adapt, then int8 against bf16 on the adapted params
+    small_adapted = adapt_generator(small, small_sd, small_clip[0], steps=2, learning_rate=1e-4,
+                                    device=dev)
+    small_model.load_state_dict(small_adapted)
+    s_bf16 = build_clip_inference(small)(small_model, small_clip)
+    sprep, sinfer = build_quantized_clip_inference(small)
+    s_int8 = sinfer(small_model, sprep(small_model, small_adapted, small_clip, frames=4),
+                    small_clip)
+    db = psnr(s_int8, s_bf16)
+    print(f"[13b] adapted params served, {SERVE_T} frames {H}x{W} -> {4 * H}x{4 * W}: bf16 "
+          f"fused {fused_ms:.3f} ms ({SERVE_T / fused_ms * 1e3:.3f} fps), launches {bf16_counts}; "
+          f"int8 after calibrate_clip + quantize_tail on the adapted params {q_ms:.3f} ms "
+          f"({SERVE_T / q_ms * 1e3:.3f} fps), launches {q_counts}; int8 vs bf16 "
+          f"{psnr(q_out, fused_out):.2f} dB | small width, kernels x{KERNEL_GAIN}, 2 adapt "
+          f"steps: int8 vs bf16 {db:.2f} dB (bar {INT8_VS_BF16_DB} dB), moved from the "
+          f"unadapted bf16 clip by {psnr(s_bf16, small_bf16):.2f} dB | {smi}", flush=True)
+    require(db > INT8_VS_BF16_DB, f"[13b] small adapted int8 vs bf16 {db:.2f} dB")
+    small_model.load_state_dict(small_sd)  # phase 13f serves phase 5's weights
+    del q_out, qtail
+
+    # -- 13c. post-hoc LR-consistency refine of the 1080p SR clip
+    sr, lr = fused_out[0], lr8[0]
+
+    def consistency(x):
+        return float(torch.sqrt(torch.mean(torch.square(resize_bilinear_aa(x, lr.shape) - lr))))
+
+    refined, refine_ms = timed(lambda: lr_consistency_refine(sr, lr, iters=REFINE_ITERS))
+    c0, c1 = consistency(sr), consistency(refined)
+    require(refined.shape == sr.shape and bool(torch.isfinite(refined).all()) and c1 < c0,
+            f"[13c] refine: consistency {c0} -> {c1}")
+    print(f"[13c] lr_consistency_refine, {REFINE_ITERS} iterations on {tuple(sr.shape)}: "
+          f"RMS |down4(sr) - lr| {c0:.6f} -> {c1:.6f}, {refine_ms:.3f} ms | {smi}", flush=True)
+    del refined
+
+    # -- 13d. the metrics between the fused and the exact route's 1080p frames
+    exact_cfg = cfg.replace(use_pallas=False)
+    exact = build_clip_inference(exact_cfg)(model, lr8)[0]
+    fused = fused_out[0]
+    vgg = vgg_model(init_vgg(torch.Generator().manual_seed(19)), device=dev)
+    with torch.inference_mode():
+        per_frame_db, psnr_ms = timed(lambda: psnr_per_frame(exact, fused))
+        s_val, ssim_ms = timed(lambda: ssim(fused, exact))
+        feats, vgg_ms = timed(lambda: [vgg19_features(vgg, x[t:t + 1], VGG_LAYERS)
+                                       for x in (fused, exact) for t in range(SERVE_T)])
+        fx = {k: torch.cat([f[k] for f in feats[:SERVE_T]]) for k in VGG_LAYERS}
+        fy = {k: torch.cat([f[k] for f in feats[SERVE_T:]]) for k in VGG_LAYERS}
+        d_vgg, dist_ms = timed(lambda: vgg_perceptual_distance(fx, fy, VGG_LAYERS))
+        d_lpips, lpips_ms = timed(lambda: lpips_distance(fx, fy, VGG_LAYERS))
+    vals = [float(v) for v in per_frame_db] + [float(s_val), float(d_vgg), float(d_lpips)]
+    require(tuple(per_frame_db.shape) == (SERVE_T,) and all(np.isfinite(v) for v in vals)
+            and -1.0 <= float(s_val) <= 1.0 and float(d_vgg) >= 0 and float(d_lpips) >= 0,
+            f"[13d] metrics {vals}")
+    print(f"[13d] fused vs exact route (adapted params, bf16), {SERVE_T} frames {4 * H}x{4 * W}:"
+          f" psnr_per_frame mean {float(per_frame_db.mean()):.3f} dB (min "
+          f"{float(per_frame_db.min()):.3f}) in {psnr_ms:.3f} ms; ssim {float(s_val):.6f} in "
+          f"{ssim_ms:.3f} ms; VGG-19 (seeded weights, published widths) features of "
+          f"{2 * SERVE_T} frames to conv4_4 in {vgg_ms:.3f} ms; vgg_perceptual_distance "
+          f"{float(d_vgg):.6e} in {dist_ms:.3f} ms; lpips_distance (uniform weights, the "
+          f"surrogate) {float(d_lpips):.6e} in {lpips_ms:.3f} ms | {smi}", flush=True)
+    del feats, fx, fy, model, adapted
+
+    # -- 13e. the card against the CPU
+    tiny = TecoConfig(precision="fp32", num_resblock=1, bug_parity=False, use_pallas=False,
+                      crop_size=8, RNN_N=3)
+    tiny_params = init_generator(tiny, torch.Generator().manual_seed(0))
+    tiny_clip = smooth_clip(9, 24, 24, seed=5)
+
+    def tiny_run(where):
+        got = []
+        params, report = adapt_generator(tiny, tiny_params, tiny_clip, steps=3,
+                                         learning_rate=1e-3, consistency=0.5, guard=True,
+                                         eval_every=1, device=where,
+                                         on_step=lambda i, loss: got.append(float(loss)))
+        require(all(v.device.type == where.type for v in params.values()),
+                f"[13e] adaptation on {where} returned params elsewhere")
+        return got, report
+
+    (card_l, card_r), (cpu_l, cpu_r) = tiny_run(dev), tiny_run(torch.device("cpu"))
+    worst = max(rel(a, b) for a, b in zip(card_l, cpu_l))
+    require(len(card_l) == len(cpu_l) == 3 and worst <= CARD_CPU_RTOL,
+            f"[13e] adaptation losses card {card_l} cpu {cpu_l}")
+    d_base = abs(card_r["base_psnr_db"] - cpu_r["base_psnr_db"])
+    require(d_base <= CARD_CPU_RTOL, f"[13e] base PSNR card {card_r} cpu {cpu_r}")
+    # SSIM with TF32 left on globally: the filter turns it off itself
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        s_card = float(ssim(fused[:2], exact[:2]))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    s_cpu = float(ssim(fused[:2].cpu(), exact[:2].cpu()))
+    require(abs(s_card - s_cpu) <= SSIM_CARD_CPU_TOL, f"[13e] ssim card {s_card} cpu {s_cpu}")
+    x64 = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    vgg_cpu = vgg_model(init_vgg(torch.Generator().manual_seed(19)), device="cpu")
+    with torch.inference_mode():
+        card_f = vgg(x64.to(dev) * 255.0 - 120.0)[1]
+        cpu_f = vgg_cpu(x64 * 255.0 - 120.0)[1]
+    vgg_worst = max(float((card_f[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                    for k, v in cpu_f.items())
+    require(vgg_worst <= VGG_CARD_CPU_RTOL, f"[13e] VGG features card vs CPU {vgg_worst}")
+    print(f"[13e] card vs CPU: adaptation at the tiny fp32 config (TF32 off), 3 guarded steps: "
+          f"losses rel {worst:.3e} (worst; bar {CARD_CPU_RTOL}), base PSNR {card_r['base_psnr_db']}"
+          f" / {cpu_r['base_psnr_db']} dB (bar {CARD_CPU_RTOL} dB), chosen step "
+          f"{card_r['chosen_step']} / {cpu_r['chosen_step']} | ssim on 2 frames of "
+          f"{4 * H}x{4 * W} with TF32 on globally {s_card:.9f} / {s_cpu:.9f} (bar "
+          f"{SSIM_CARD_CPU_TOL}) | VGG-19 end points at 64x64 (TF32 off): {vgg_worst:.3e} of each "
+          f"layer's largest (bar {VGG_CARD_CPU_RTOL}) | {smi}", flush=True)
+    del vgg, vgg_cpu, fused, exact, fused_out
+
+    # -- 13f. the NHWC fused route on the card (phase 5's scaled small width),
+    #    with cuDNN held to deterministic algorithms for the bit-level compare
+    torch.backends.cudnn.deterministic = True
+    s2d_out = build_clip_inference(small)(small_model, small_clip)
+    lines = []
+    for group in (2, 8):
+        reset_counts()
+        out = build_clip_inference(small.replace(warp_group=group))(small_model, small_clip)
+        c = counts()
+        require(torch.equal(out, s2d_out), f"[13f] warp_group {group} differs from the s2d route")
+        require(c["warp_s2d"] == SMALL_CLIP[1] - 1 and c["conv_out_s2d"] == SMALL_CLIP[1],
+                f"[13f] warp_group {group} launches {c}")
+        lines.append(f"warp_group {group}: bit-equal to the s2d route, launches {c}")
+    odd = small_clip[:, :, :, :SMALL_CLIP[3] - 1].contiguous()  # 4W % 8 == 4
+    reset_counts()
+    out = build_clip_inference(small.replace(warp_group=8))(small_model, odd)
+    c = counts()
+    torch.backends.cudnn.deterministic = False
+    want = build_clip_inference(small.replace(precision="fp32", use_pallas=False))(exact_small, odd)
+    db = psnr(out[:, -1], want[:, -1])
+    require(c["warp_s2d"] == 0 and c["conv_out_s2d"] == SMALL_CLIP[1],
+            f"[13f] odd width launches {c}")
+    print(f"[13f] NHWC fused route, {SMALL_CLIP[1]} frames {SMALL_CLIP[2]}x{SMALL_CLIP[3]}: "
+          + "; ".join(lines) + f" | warp_group 8 at LR width {odd.shape[3]} (the bf16 frame "
+          f"warp, F.grid_sample): last frame {db:.2f} dB against the exact fp32 route (bar "
+          f"{PSNR_BAR_DB} dB), launches {c} | {smi}", flush=True)
+    require(db > PSNR_BAR_DB, f"[13f] odd width vs exact {db:.2f} dB")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -559,6 +867,8 @@ def main() -> None:
     print(smi)
     print(f"[1] card: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
+    found = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "imageio", "PIL")}
+    print(f"[1] image I/O modules importable: {found}", flush=True)
 
     # -- 2. build: one nvcc a source, started together
     t0 = time.perf_counter()
@@ -807,6 +1117,8 @@ def main() -> None:
 
     int8_recs = int8_phase(dev, smi, cfg, model, params, clip, infer, small, fast_model, sd,
                            small_clip, fast, rng)
+    del model, clip, infer
+    adapt_phase(dev, smi, small, fast_model, sd, small_clip, fast, exact_model)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -88,7 +88,7 @@ class TecoConfig:
     bug_parity: bool = True  # reproduce the reference's quirks (exact route)
     data_axis: int = 0
     use_pallas: bool = True  # with bug_parity off: the fused s2d-carry route
-    warp_group: int = 4  # the fused route needs 4 (the NHWC route is not ported)
+    warp_group: int = 4  # fused route: 4 is the s2d route, others the NHWC route
     remat: bool = False
     prefetch: int = 2
     log_every: int = 10

@@ -1,6 +1,7 @@
-"""The fused s2d-carry serving route (tecogan_tpu/engine/fused.py, the
-subset ``build_clip_inference`` runs with ``bug_parity=False``,
-``use_pallas=True``, ``warp_group=4``).
+"""The fused s2d-carry serving route (tecogan_tpu/engine/fused.py, what
+``build_clip_inference`` runs with ``bug_parity=False``,
+``use_pallas=True``: the s2d route at ``warp_group=4`` and the NHWC
+route at other groups, whose carry here is the same s2d frame).
 
 The recurrent state is the SR frame in space-to-depth layout
 ``(B, H, W, 48)`` bf16, channel ``c*16 + a*4 + b``: conv_out writes it
@@ -22,7 +23,9 @@ import torch.nn.functional as F
 from ..models import Generator
 from ..ops.kernels.conv_out_s2d import conv_out_s2d_cuda, conv_out_s2d_reference
 from ..ops.kernels.warp_s2d import warp_s2d_feedback_cuda, warp_s2d_feedback_reference
-from ..ops.space import depth_to_space
+from ..ops.image import deprocess
+from ..ops.space import depth_to_space, space_to_depth
+from ..ops.warp import grid_sample, pseudo_flow_nchw
 
 
 def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
@@ -50,6 +53,17 @@ def warp_s2d_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tenso
     if carry.device.type == "cpu":
         return warp_s2d_feedback_reference(carry, prev_lr).to(torch.bfloat16)
     return warp_s2d_feedback_cuda(carry, prev_lr.contiguous())
+
+
+def frame_warp_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tensor:
+    """The feedback of the NHWC fused route where the u8 table does not
+    apply (``4W % warp_group != 0``): the bf16 frame of the carry warped
+    by ``F.grid_sample`` with no u8 rounding (the JAX route's
+    ``grid_sample_patch``), rounded to bf16, then ``s2d(deprocess(.))``
+    -> (B, H, W, 48) bf16."""
+    frame = s2d_to_frame(carry).float()
+    warped = grid_sample(frame, pseudo_flow_nchw(prev_lr.permute(0, 3, 1, 2)))
+    return space_to_depth(deprocess(warped.to(torch.bfloat16)))
 
 
 def s2d_to_frame(s2d: torch.Tensor) -> torch.Tensor:
@@ -94,9 +108,18 @@ def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor,
 
 def fused_sr_step_s2d(model: Generator, carry_s2d: torch.Tensor,
                       prev_lr: torch.Tensor, cur_lr: torch.Tensor,
-                      tail_fn: Optional[Callable] = None) -> torch.Tensor:
+                      tail_fn: Optional[Callable] = None,
+                      warp_group: int = 4) -> torch.Tensor:
     """One recurrent step, s2d carry in -> s2d carry out (NHWC);
-    ``tail_fn`` as in :func:`fused_first_frame_s2d`."""
-    net = fused_first_layer(model, cur_lr, warp_s2d_feedback(carry_s2d, prev_lr))
+    ``tail_fn`` as in :func:`fused_first_frame_s2d`.  The JAX route warps
+    the frame through its u8 table where ``warp_group`` divides the HR
+    width 4W, which gives the s2d route's result bit for bit: that is the
+    ``warp_s2d`` kernel here; other widths warp the bf16 frame
+    (:func:`frame_warp_feedback`)."""
+    if (4 * carry_s2d.shape[2]) % warp_group == 0:
+        feedback = warp_s2d_feedback(carry_s2d, prev_lr)
+    else:
+        feedback = frame_warp_feedback(carry_s2d, prev_lr)
+    net = fused_first_layer(model, cur_lr, feedback)
     feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
     return conv_out_s2d(feat, *conv_out_params(model))

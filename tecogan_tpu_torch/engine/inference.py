@@ -67,17 +67,19 @@ class _Route(NamedTuple):
 
 def _route(cfg: TecoConfig) -> _Route:
     """The route ``cfg`` selects, as in the JAX package: ``use_pallas``
-    without ``bug_parity`` is the fused s2d-carry route (``warp_group``
-    4); every other setting is the exact route, with the fp16 grid
-    rounding under ``bug_parity``.  ``cfg.gather_unroll_streams`` only
-    picks a TPU gather lowering, so it has nothing to select here."""
+    without ``bug_parity`` is the fused route, with the s2d carry at
+    every ``warp_group`` (the JAX NHWC route's bf16 frame, rearranged; the
+    warp per :func:`engine.fused.fused_sr_step_s2d`); every other setting
+    is the exact route, with the fp16 grid rounding under ``bug_parity``.
+    ``cfg.gather_unroll_streams`` only picks a TPU gather lowering, so it
+    has nothing to select here."""
     if cfg.use_pallas and not cfg.bug_parity:
-        if cfg.warp_group != 4:
-            raise ValueError(
-                f"the fused route needs warp_group=4 (got {cfg.warp_group}); "
-                "the NHWC fused route is not ported")
+        def fused_step(model, carry, prev_lr, cur_lr):
+            return fused_sr_step_s2d(model, carry, prev_lr, cur_lr,
+                                     warp_group=cfg.warp_group)
+
         return _Route(
-            first=fused_first_frame_s2d, step=fused_sr_step_s2d,
+            first=fused_first_frame_s2d, step=fused_step,
             frames=lambda s2d: s2d_to_frame(s2d).to(
                 torch.float32, memory_format=torch.contiguous_format),
             carry_shape=lambda B, H, W: (B, H, W, 48),

@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from ..models import Generator
 from ..ops.kernels.int8_conv import (int8_conv3x3_cuda, int8_conv3x3_reference,
                                      int8_up2x_cuda, int8_up2x_reference)
-from ..utils.convert import GENERATOR_TRANSPOSED, generator_state_dict_from_jax
+from ..utils.convert import GENERATOR_TRANSPOSED
 from . import fused
+from .state import float_params, resolve_device
 
 QTail = Dict[str, Dict[str, Optional[torch.Tensor]]]
 
@@ -96,14 +97,6 @@ def calibrate(model: Generator, net: torch.Tensor):
     return _chain(model, net.to(model.dtype), conv), maxes
 
 
-def _float_params(params) -> Dict[str, torch.Tensor]:
-    """The generator's float32 params as a ``state_dict``: a flax tree (nested
-    dict of arrays) is converted, a ``state_dict`` taken as it is."""
-    if any(isinstance(v, Mapping) for v in params.values()):
-        return generator_state_dict_from_jax(params)
-    return {k: v.detach().to(torch.float32) for k, v in params.items()}
-
-
 def quantize_tail(params, act_maxes: Mapping[str, torch.Tensor],
                   device=None) -> QTail:
     """The qtail from the float32 params (the flax tree or the port's
@@ -115,16 +108,17 @@ def quantize_tail(params, act_maxes: Mapping[str, torch.Tensor],
     as the params hold (the JAX package's ``_conv_layers(params_g)``); a
     layer missing from ``act_maxes`` raises ``KeyError`` naming it.  The
     qtail lies on ``device``, by default the device of the maxima
-    (``calibrate_clip`` returns them on the model's device; the CPU for
-    maxima that are not tensors)."""
-    sd = _float_params(params)
+    (``calibrate_clip`` returns them on the model's device); for maxima
+    that are not tensors the default is the card, as
+    ``engine.state.resolve_device`` says: the CPU only when named."""
+    sd = float_params(params)
     names = _layer_names(len({k.split(".")[0] for k in sd if k.startswith("resblock_")}))
     missing = [n for n in names if n not in act_maxes]
     if missing:
         raise KeyError(f"act_maxes has no maximum for the tail layers {missing}")
     if device is None:
         first = act_maxes[names[0]]
-        device = first.device if isinstance(first, torch.Tensor) else "cpu"
+        device = first.device if isinstance(first, torch.Tensor) else resolve_device()
     q: QTail = {}
     for name in names:
         key = name.replace("/", ".")

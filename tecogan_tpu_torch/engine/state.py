@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,23 @@ def lr_schedule(cfg: TecoConfig):
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int):
+    """``optax.cosine_decay_schedule(init_value, decay_steps)`` (alpha 0,
+    exponent 1) in float32: ``init * 0.5 (1 + cos(pi min(count, decay) /
+    decay))``.  ``optax.adam(schedule)`` scales update ``k`` by the rate
+    at count ``k``, read before the increment."""
+    if not decay_steps > 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+    f = np.float32
+
+    def schedule(count: int) -> float:
+        c = f(min(count, decay_steps))
+        cosine = f(0.5) * (f(1.0) + np.cos(f(np.pi) * c / f(decay_steps)))
+        return float(f(init_value) * cosine)
+
+    return schedule
+
+
 def make_optimizers(cfg: TecoConfig) -> Tuple[Adam, Adam, Any]:
     """(G's Adam, D's Adam, the schedule): Adam(beta, 0.999, adameps) for
     both, D's rate x0.3 when ``Dt_mergeDs`` is off (main.py:237-238)."""
@@ -286,6 +303,15 @@ def train_tensors(sd: Tensors, dev: torch.device) -> Tensors:
     return {k: v.to(dev, torch.float32,
                     memory_format=fmt if v.dim() == 4 else torch.preserve_format)
             for k, v in sd.items()}
+
+
+def float_params(params) -> Tensors:
+    """The generator's float32 params as a ``state_dict``: a flax tree
+    (nested dict of arrays) is converted, a ``state_dict`` taken as it is
+    (float32 copies on its device)."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        return generator_state_dict_from_jax(params)
+    return {k: v.detach().to(torch.float32, copy=True) for k, v in params.items()}
 
 
 def state_from_params(cfg: TecoConfig, params_g: Dict[str, Any],

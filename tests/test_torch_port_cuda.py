@@ -589,3 +589,88 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert b[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
     assert (loaded.opt_g.count, loaded.opt_d.count) == (2, 2)
     assert loaded.opt_d.learning_rate == state.opt_d.learning_rate
+
+
+@pytest.mark.parametrize("group,width", [(2, 20), (8, 20), (8, 19)])
+def test_nhwc_route_on_the_card_matches_the_cpu(cuda, group, width):
+    """The fused route at warp_group 2 and 8 on the card: the u8-table
+    widths launch the warp kernel and give the s2d route's frames; an LR
+    width with 4W % 8 != 0 warps the bf16 frame (no warp kernel); every
+    case above 40 dB from the same route on the CPU."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    gpu_model, cpu_model, _ = _models(cuda, cfg)
+    clip = torch.from_numpy(
+        np.random.default_rng(0).random((1, 5, 12, width, 3), np.float32) * CLIP_RANGE)
+    nhwc = cfg.replace(warp_group=group)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kmod.launch_count = wmod.launch_count = 0
+        got = build_clip_inference(nhwc)(gpu_model, clip.to(cuda))
+        launches = (kmod.launch_count, wmod.launch_count)
+        s2d = build_clip_inference(cfg)(gpu_model, clip.to(cuda))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    table = (4 * width) % group == 0
+    assert launches == (5, 4 if table else 0)
+    assert torch.equal(got, s2d) == table
+    want = build_clip_inference(nhwc)(cpu_model, clip)
+    assert min(_db(got[:, t].cpu(), want[:, t]) for t in range(5)) > 40.0
+
+
+def test_adaptation_on_the_card_matches_the_cpu(cuda):
+    """adapt_generator at tests/test_adapt.py's config in fp32 (TF32 off),
+    3 guarded steps on the card and on the CPU: each loss within 1e-4
+    relative, the guard's scores within 1e-4, the adapted params on the
+    card; then the refine within 1e-5."""
+    from tecogan_tpu_torch.engine.adapt import adapt_generator, lr_consistency_refine
+
+    cfg = TecoConfig(precision="fp32", num_resblock=1, bug_parity=False, use_pallas=False,
+                     RNN_N=3)
+    params = init_generator(cfg, torch.Generator().manual_seed(0))
+    clip = torch.rand((9, 24, 24, 3), generator=torch.Generator().manual_seed(1)) * 0.3
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        losses = []
+        adapted, rep = adapt_generator(cfg, params, clip, steps=3, learning_rate=1e-3,
+                                       consistency=0.5, guard=True, eval_every=1, device=dev,
+                                       on_step=lambda i, loss: losses.append(float(loss)))
+        assert all(v.device.type == dev.type for v in adapted.values())
+        runs.append((losses, rep))
+    (card, card_rep), (cpu, cpu_rep) = runs
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_RTOL)
+    for k in ("base_psnr_db", "base_ssim", "chosen_psnr_db", "chosen_ssim"):
+        assert abs(card_rep[k] - cpu_rep[k]) <= 1e-4, (k, card_rep, cpu_rep)
+    lr = clip[:2]
+    sr = torch.rand((2, 96, 96, 3), generator=torch.Generator().manual_seed(2))
+    got = lr_consistency_refine(sr.to(cuda), lr.to(cuda), iters=3)
+    assert got.device == cuda
+    torch.testing.assert_close(got.cpu(), lr_consistency_refine(sr, lr, iters=3),
+                               rtol=0, atol=1e-5)
+
+
+def test_metrics_on_the_card_match_the_cpu(cuda):
+    """ssim with TF32 on globally (its filter turns TF32 off) within 1e-6;
+    psnr_per_frame within 1e-4 dB; VGG-19 end points (TF32 off) within 1e-4
+    of each layer's largest value."""
+    from tecogan_tpu_torch.models.vgg import init_vgg, vgg_model
+    from tecogan_tpu_torch.ops.metrics import psnr_per_frame, ssim
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((2, 96, 128, 3), generator=g)
+    y = (x + torch.randn(x.shape, generator=g) * 0.02).clamp(0, 1)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = float(ssim(x.to(cuda), y.to(cuda)))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.backends.cudnn.allow_tf32 == saved[0]
+    assert abs(card - float(ssim(x, y))) <= 1e-6
+    torch.testing.assert_close(psnr_per_frame(x.to(cuda), y.to(cuda)).cpu(),
+                               psnr_per_frame(x, y), rtol=0, atol=1e-4)
+    params = init_vgg(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want = vgg_model(params, device="cpu")(x[:, :64, :64] * 255.0 - 120.0)[1]
+        got = vgg_model(params, device=cuda)(x[:, :64, :64].to(cuda) * 255.0 - 120.0)[1]
+    for k, v in want.items():
+        assert float((got[k].cpu() - v).abs().max()) <= 1e-4 * float(v.abs().max()), k

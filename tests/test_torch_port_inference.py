@@ -185,16 +185,11 @@ def test_float64_clip_is_the_float32_clip(rng, bug_parity):
         assert torch.equal(frame, want[:, t]), t
 
 
-def test_nhwc_fused_route_is_refused():
-    with pytest.raises(ValueError, match="warp_group"):
-        build_clip_inference(CFG.replace(bug_parity=False, use_pallas=True,
-                                         warp_group=2))
-
-
 def test_port_runs_without_jax():
     """The port imports neither jax nor anything of the JAX package
-    ``tecogan_tpu``: run the serving slice (the int8 mode included) and the
-    training slice in a fresh interpreter."""
+    ``tecogan_tpu``: run the serving slice (the int8 mode included), the
+    training slice and the adaptation and evaluation slice (adaptation, the
+    NHWC route, the refine, the metrics, VGG-19) in a fresh interpreter."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -247,6 +242,21 @@ def test_port_runs_without_jax():
             save_train_state(d, ts, epoch=1)
             assert load_train_state(d, ts)[0].step == 1
         assert train_step_macs(1, 3, 8, 1, 1, 8) > 0
+        from tecogan_tpu_torch.engine.adapt import adapt_generator, lr_consistency_refine
+        from tecogan_tpu_torch.models.vgg import init_vgg, make_vgg_apply, vgg_model
+        from tecogan_tpu_torch.ops.metrics import lpips_distance, psnr_per_frame, ssim
+        small = clip[0, :, :, :8]
+        adapted, rep = adapt_generator(cfg.replace(RNN_N=3), params, small, steps=1,
+                                       guard=True, eval_every=1, device="cpu")
+        assert rep["holdout_windows"] == 1 and adapted.keys() == model.state_dict().keys()
+        model.load_state_dict(adapted)
+        wide = build_clip_inference(cfg.replace(warp_group=8))(model, clip[..., :3, :])
+        assert tuple(wide.shape) == (1, 3, 16, 12, 3)
+        ref = lr_consistency_refine(wide[0], clip[0, :, :, :3], iters=2)
+        assert float(psnr_per_frame(ref, wide[0]).min()) > 0 and -1 < float(ssim(ref, wide[0])) <= 1
+        feats = make_vgg_apply(vgg_model(init_vgg(torch.Generator().manual_seed(0)),
+                                         device="cpu"))(ref[:1], ("vgg_19/conv2_2",))
+        assert float(lpips_distance(feats, feats)) == 0.0
         bad = sorted(m for m in sys.modules if m in ("jax", "flax", "tecogan_tpu")
                      or m.startswith(("jax.", "flax.", "tecogan_tpu.")))
         assert not bad, bad

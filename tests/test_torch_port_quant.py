@@ -122,6 +122,20 @@ def test_quantize_tail_lies_on_the_maxima_device(rng, monkeypatch):
     assert seen[-1] == "cpu"
 
 
+def test_quantize_tail_uses_the_cpu_only_when_named(rng, monkeypatch):
+    """Maxima that are not tensors carry no device: the qtail then goes to
+    the card, and with no card visible quantize_tail raises, unless the
+    caller names the CPU."""
+    params = _params()
+    maxes = _jax_maxes(params, rng)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        quant.quantize_tail(params, maxes)
+    q = quant.quantize_tail(params, maxes, device="cpu")
+    assert all(v.device.type == "cpu" for layer in q.values() for v in layer.values()
+               if v is not None)
+
+
 def test_qtail_from_jax_is_the_ports_qtail(rng):
     """A JAX qtail carried across equals the port's own from the same
     params and maxima, tensor for tensor."""
@@ -529,6 +543,6 @@ def test_int8_needs_the_fused_route(change):
 def test_chunked_int8_refused_on_the_exact_route(rng):
     cfg = CFG.replace(use_pallas=False)
     params = _params()
-    qtail = quant.quantize_tail(params, _jax_maxes(params, rng))
+    qtail = quant.quantize_tail(params, _jax_maxes(params, rng), device="cpu")
     with pytest.raises(ValueError):
         build_chunked_inference(cfg)(_model(params, cfg), _clip(rng), chunk=3, qtail=qtail)

@@ -95,14 +95,38 @@ paper's config.  Phases:
    end points at 64 x 64 within 1e-4 of each layer's largest; (f) the NHWC
    fused route at ``warp_group`` 2 and 8 bit-equal to the s2d route, and
    at 8 with an odd LR width (the bf16 frame warp) above the 40 dB bar
-   against the exact fp32 route.
+   against the exact fp32 route;
+14. the command line (``tecogan_tpu_torch.cli``) on the card: (a) 3
+   synthetic scenes (``variety``, 120 frames of 128 x 128) written to a
+   temporary folder; (b) ``cli.main.main`` trains at the paper's config
+   (B=4, RNN_N=10, crop 32, 16 resblocks, D 4 x 128, bf16, ``--bug_parity
+   False``) for an epoch of 6 steps at 2 steps a dispatch on scenes
+   1000-1001, validating on 1002, then resumes for two more epochs: ms a
+   step and samples/s as the CLI printed them, peak memory, the
+   validation PSNR, the hand kernels' launches (validation's alone), the
+   checkpoint pair loaded and the artifacts present; (c) inference in
+   dataset mode from that checkpoint at full width (``--crop_size 270``,
+   16 LR frames, the fused route): the frames handed to the writer
+   bit-equal to ``build_clip_inference`` on ``InferenceDataset``'s clip,
+   launches 16 / 15, the mp4 decoded to 16 frames of 1080 x 1080, fps as
+   the CLI printed it; (d) ``--quantize int8`` bit-equal to
+   ``build_quantized_clip_inference`` after ``prepare`` on the same clip,
+   the clip's launches 592 / 32 / 16 / 15 and the calibration's 0 / 0 /
+   8 / 7; (e) ``--infer_chunk 8 --transfer_dtype u8`` bit-equal to the
+   engine's chunked u8 run; (f) two clips (12 frames of 268 x 268) with
+   ``--adapt_steps 2 --quantize int8``: two calibrations, one on each
+   clip's adapted params; (g) video mode on a ``cv2``-written mp4,
+   bit-equal to the engine on ``load_video_frames``; (h) ``cli.evaluate``
+   on (c)'s mp4 against its source frames, and ``cli.live`` on a
+   synthetic chess source (16 frames, ``--crop_size 270``): frame latency
+   p50 and max, launches.
 
 Phases 9-11 and 13a, c-e run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 kernels' times are a frame's: the
 sum over the frame's launches at each layer shape (37 and 2).
 
-Phases 7, 8 and 13f hold cuDNN to deterministic algorithms: the transposed
+Phases 7, 8, 13f and 14 hold cuDNN to deterministic algorithms: the transposed
 convs' default algorithm may sum in a different order from one call to
 the next, and these phases compare paths bit for bit.
 
@@ -111,9 +135,13 @@ the card's line is the kernels' JSON record; the last line of standard
 output is the JSON device record.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
+import re
+import shutil
 import statistics
 import sys
 import time
@@ -836,6 +864,294 @@ def adapt_phase(dev, smi, small, small_model, small_sd, small_clip, small_bf16,
     require(db > PSNR_BAR_DB, f"[13f] odd width vs exact {db:.2f} dB")
 
 
+# phase 14: the command line on the card
+CLI_TRAIN_STEPS, CLI_DISPATCH = 6, 2
+CLI_LR, CLI_T = 270, 16              # full width: 270 x 270 LR -> 1080 x 1080
+CLI_CHUNK = 8
+CLI_ADAPT_LR, CLI_ADAPT_T, CLI_ADAPT_STEPS = 268, 12, 2   # /4-divisible for adaptation
+LIVE_SOURCE = "synth:class=chess:noise=0.02:size=480x270"
+
+
+def cli_phase(dev, smi) -> None:
+    """Phase 14: train, resume and serve through ``cli.main.main``, then
+    ``cli.evaluate`` and ``cli.live``, as a user runs them."""
+    import tempfile
+
+    import cv2
+
+    from tecogan_tpu_torch.cli import evaluate, live
+    from tecogan_tpu_torch.cli import main as cli
+    from tecogan_tpu_torch.config import parse_config
+    from tecogan_tpu_torch.data.scenes import InferenceDataset, load_video_frames
+    from tecogan_tpu_torch.data.synthetic import (moving_rect_scene,
+                                                  write_synthetic_scene_folders)
+    from tecogan_tpu_torch.engine import inference as engine_inference
+    from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
+                                                    build_clip_inference)
+    from tecogan_tpu_torch.engine.state import init_state
+    from tecogan_tpu_torch.ops import image
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.utils.checkpoint import (has_checkpoint, load_generator_params,
+                                                    load_train_state)
+
+    def counts():
+        return (qmod.conv3x3_launch_count, qmod.up2x_launch_count, kmod.launch_count,
+                wmod.launch_count)
+
+    def run(fn, argv, **kw):
+        """``fn(argv)`` with the launch counts set to 0 just before and read
+        just after; returns (its stdout, counts, seconds, peak bytes)."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kmod.launch_count = wmod.launch_count = 0
+        qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv, **kw)
+        torch.cuda.synchronize()
+        return (buf.getvalue(), counts(), time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev))
+
+    def grab(pattern, text, what):
+        found = re.findall(pattern, text)
+        require(bool(found), f"[14] no {what} in the CLI's output:\n{text[-2000:]}")
+        return found
+
+    # the CLI's writers and the int8 build, recorded (and still run)
+    handed, windows, calibrations = [], [], []
+    real_save, real_writer = image.save_as_media, image.MediaWriter
+    real_build = engine_inference.build_quantized_clip_inference
+
+    def save(frames, path, *a, **kw):
+        handed.append(np.array(frames))
+        real_save(frames, path, *a, **kw)
+
+    class Writer(real_writer):
+        def append(self, frames):
+            windows.append(np.array(frames))
+            super().append(frames)
+
+    def build_q(cfg):
+        prepare, qinfer = real_build(cfg)
+
+        def recorded(model, params, clip, frames=8):
+            before = counts()
+            qtail = prepare(model, params, clip, frames)
+            torch.cuda.synchronize()
+            calibrations.append((params, tuple(a - b for a, b in zip(counts(), before))))
+            return qtail
+
+        return recorded, qinfer
+
+    image.save_as_media, image.MediaWriter = save, Writer
+    engine_inference.build_quantized_clip_inference = build_q
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # -- 14a. scenes
+        t0 = time.perf_counter()
+        scenes = os.path.join(tmp, "scenes")
+        write_synthetic_scene_folders(scenes, num_scenes=3, frames_per_scene=120, size=128,
+                                      variety=True)
+        print(f"[14a] 3 synthetic scenes of 120 frames 128x128 (variety) written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # -- 14b. train, validate, resume
+        out = os.path.join(tmp, "train")
+        train = ["--mode", "train", "--input_video_dir", scenes, "--str_dir", "1000",
+                 "--end_dir", "1001", "--end_dir_val", "1002", "--validate_every", "1",
+                 "--output_dir", out, "--summary_dir", os.path.join(out, "summary"),
+                 "--bug_parity", "False", "--steps_per_epoch", str(CLI_TRAIN_STEPS),
+                 "--steps_per_dispatch", str(CLI_DISPATCH), "--precision", "bf16"]
+        template_cfg = parse_config(train)
+        for name, extra, epochs in (("train", ["--max_epochs", "1"], 1),
+                                    ("resume", ["--max_epochs", "2", "--pre_trained_model",
+                                                "True"], 2)):
+            text, c, secs, peak = run(cli.main, train + extra)
+            steps = grab(r"Epoch steps: (\d+) in [0-9.]+ s, ([0-9.]+) ms a step, ([0-9.]+) "
+                         r"samples/s", text, "step time")
+            psnrs = [float(v) for v in grab(r"Validation PSNR: ([-0-9.]+) dB", text, "PSNR")]
+            require(len(steps) == epochs and all(int(n) == CLI_TRAIN_STEPS for n, _, _ in steps),
+                    f"[14b] {name}: epochs / steps {steps}")
+            require(name == "train" or "resumed from epoch 0" in text, "[14b] no resume line")
+            require(all(np.isfinite(psnrs)) and len(psnrs) == epochs, f"[14b] PSNR {psnrs}")
+            require(c == (0, 0, 10 * epochs, 9 * epochs),
+                    f"[14b] {name}: validation launches {c} (10 frames an epoch)")
+            require(has_checkpoint(out), "[14b] no checkpoint pair")
+            state, epoch = load_train_state(out, init_state(template_cfg,
+                                                            torch.Generator().manual_seed(0)))
+            require(epoch == epochs - 1 and state.step == CLI_TRAIN_STEPS * (1 + 2 * (epochs - 1)),
+                    f"[14b] {name}: checkpoint at epoch {epoch}, step {state.step}")
+            missing = [a for a in ("gan.gif", "real.gif", "original.gif", "Gan_examples.jpg",
+                                   "real_image.jpg", "original_image.jpg",
+                                   "summary/train_metrics.jsonl")
+                       if not os.path.exists(os.path.join(out, a))]
+            require(not missing, f"[14b] missing artifacts {missing}")
+            print(f"[14b] cli {name}: B=4 RNN_N=10 crop 32, 16 resblocks, D 4x128, bf16, "
+                  f"bug_parity False, {CLI_DISPATCH} steps a dispatch: "
+                  + "; ".join(f"epoch {i + 1}: {float(ms):.3f} ms a step, {float(sps):.3f} "
+                              f"samples/s" for i, (_, ms, sps) in enumerate(steps))
+                  + f" (as the CLI printed them: the epoch's wall time over its steps, input "
+                  f"pipeline and first-step warm-up included) | validation PSNR "
+                  f"{', '.join(f'{v:.3f}' for v in psnrs)} dB, launches conv_out_s2d {c[2]}, "
+                  f"warp_s2d {c[3]} | checkpoint epoch {epoch} step {state.step} loaded, "
+                  f"artifacts present | peak device memory {peak / 2**30:.3f} GiB | "
+                  f"{secs:.1f} s | {smi}", flush=True)
+        del state
+
+        # -- 14c. inference, dataset mode, full width
+        g_ckpt = os.path.join(out, "generator.ckpt")
+        params = load_generator_params(g_ckpt)
+        lr_dir = os.path.join(tmp, "lr", "clip_0000")
+        os.makedirs(lr_dir)
+        for t in range(CLI_T):
+            shutil.copy(os.path.join(scenes, "scene_1001", f"col_high_{t:04d}.png"), lr_dir)
+        infer_argv = ["--mode", "inference", "--input_dir_LR", os.path.dirname(lr_dir),
+                      "--g_checkpoint", g_ckpt, "--crop_size", str(CLI_LR), "--bug_parity",
+                      "False", "--summary_dir", os.path.join(tmp, "summary")]
+        cfg = parse_config(infer_argv)
+        model = cli._model(cfg, params, dev)
+        clip = InferenceDataset(cfg).get_clip(0)
+        require(clip.shape == (CLI_T, CLI_LR, CLI_LR, 3), f"[14c] clip {clip.shape}")
+        want = build_clip_inference(cfg)(model, torch.from_numpy(clip)[None].to(dev))[0].cpu()
+        handed.clear()
+        mp4 = os.path.join(tmp, "out_c", "output0.mp4")
+        text, c, secs, _ = run(cli.main, infer_argv + ["--output_dir", os.path.dirname(mp4)])
+        fps = float(grab(r"\(([0-9.]+) fps\)", text, "fps")[0])
+        require(len(handed) == 1 and np.array_equal(handed[0], want.numpy()),
+                "[14c] the CLI's frames differ from build_clip_inference")
+        require(c == (0, 0, CLI_T, CLI_T - 1), f"[14c] launches {c}")
+        cap, n_dec, shape = cv2.VideoCapture(mp4), 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n_dec, shape = n_dec + 1, frame.shape
+        cap.release()
+        require(n_dec == CLI_T and shape == (4 * CLI_LR, 4 * CLI_LR, 3),
+                f"[14c] mp4 decoded to {n_dec} frames of {shape}")
+        print(f"[14c] cli inference, dataset mode, {CLI_T} frames {CLI_LR}x{CLI_LR} -> "
+              f"{4 * CLI_LR}x{4 * CLI_LR}, fused bf16: {fps:.1f} fps as the CLI printed it "
+              f"({secs:.2f} s for the call, checkpoint load included) | bit-equal to "
+              f"build_clip_inference | launches conv_out_s2d {c[2]}, warp_s2d {c[3]} | mp4 "
+              f"{n_dec} frames of {shape[1]}x{shape[0]} | {smi}", flush=True)
+
+        # -- 14d. int8
+        prepare, qinfer = real_build(cfg)
+        qtail = prepare(model, params, clip[None], frames=8)
+        want_q = qinfer(model, qtail, torch.from_numpy(clip)[None].to(dev))[0].cpu().numpy()
+        handed.clear()
+        calibrations.clear()
+        text, c, secs, _ = run(cli.main, infer_argv + ["--output_dir", os.path.join(tmp, "out_d"),
+                                                      "--quantize", "int8"])
+        fps = float(grab(r"\(([0-9.]+) fps\)", text, "fps")[0])
+        require(len(handed) == 1 and np.array_equal(handed[0], want_q),
+                "[14d] the CLI's int8 frames differ from build_quantized_clip_inference")
+        require(len(calibrations) == 1 and calibrations[0][1] == (0, 0, 8, 7),
+                f"[14d] calibrations {[k for _, k in calibrations]}")
+        clip_c = tuple(a - b for a, b in zip(c, calibrations[0][1]))
+        require(clip_c == (37 * CLI_T, 2 * CLI_T, CLI_T, CLI_T - 1),
+                f"[14d] the clip's launches {clip_c}")
+        print(f"[14d] cli --quantize int8: bit-equal to build_quantized_clip_inference | the "
+              f"clip's launches int8_conv3x3 {clip_c[0]}, int8_up2x {clip_c[1]}, conv_out_s2d "
+              f"{clip_c[2]}, warp_s2d {clip_c[3]}; the calibration's (8 frames) "
+              f"{calibrations[0][1]} | {fps:.1f} fps as the CLI printed it | {smi}", flush=True)
+
+        # -- 14e. chunked, u8 in and out
+        want_u8 = build_chunked_inference(cfg, out_u8=True)(
+            model, image.transfer_quantize_u8(clip[None]), chunk=CLI_CHUNK)[0].numpy()
+        windows.clear()
+        text, c, secs, _ = run(cli.main, infer_argv + [
+            "--output_dir", os.path.join(tmp, "out_e"), "--infer_chunk", str(CLI_CHUNK),
+            "--transfer_dtype", "u8"])
+        fps = float(grab(r"\(([0-9.]+) fps\)", text, "fps")[0])
+        require([w.shape[0] for w in windows] == [CLI_CHUNK] * (CLI_T // CLI_CHUNK)
+                and np.array_equal(np.concatenate(windows), want_u8),
+                "[14e] the CLI's u8 windows differ from the engine's chunked u8 run")
+        require(c == (0, 0, CLI_T, CLI_T - 1), f"[14e] launches {c}")
+        print(f"[14e] cli --infer_chunk {CLI_CHUNK} --transfer_dtype u8: windows "
+              f"{[w.shape[0] for w in windows]} bit-equal to build_chunked_inference(out_u8) | "
+              f"launches conv_out_s2d {c[2]}, warp_s2d {c[3]} | {fps:.1f} fps | {smi}", flush=True)
+
+        # -- 14f. two adapted clips, int8
+        adapt_root = os.path.join(tmp, "adapt")
+        for i, scene in enumerate(("scene_1000", "scene_1002")):
+            d = os.path.join(adapt_root, f"clip_{i:04d}")
+            os.makedirs(d)
+            for t in range(CLI_ADAPT_T):
+                shutil.copy(os.path.join(scenes, scene, f"col_high_{t:04d}.png"), d)
+        calibrations.clear()
+        handed.clear()
+        text, c, secs, peak = run(cli.main, infer_argv + [
+            "--input_dir_LR", adapt_root, "--crop_size", str(CLI_ADAPT_LR), "--output_dir",
+            os.path.join(tmp, "out_f"), "--adapt_steps", str(CLI_ADAPT_STEPS), "--quantize",
+            "int8"])
+        served = grab(r"clip \d: \d+ adapt steps in [0-9.]+s; serving ([^\n]+)", text, "adapt")
+        require(len(calibrations) == 2 and calibrations[0][0] is not calibrations[1][0]
+                and all(isinstance(next(iter(p.values())), torch.Tensor)
+                        for p, _ in calibrations),
+                f"[14f] {len(calibrations)} calibrations for 2 adapted clips")
+        cal = tuple(sum(k[i] for _, k in calibrations) for i in range(4))
+        clip_c = tuple(a - b for a, b in zip(c, cal))
+        require(clip_c == (2 * 37 * CLI_ADAPT_T, 2 * 2 * CLI_ADAPT_T, 2 * CLI_ADAPT_T,
+                           2 * (CLI_ADAPT_T - 1)) and len(handed) == 2,
+                f"[14f] the clips' launches {clip_c}")
+        require(all(np.isfinite(h).all() for h in handed), "[14f] non-finite frames")
+        print(f"[14f] cli --adapt_steps {CLI_ADAPT_STEPS} --quantize int8, 2 clips of "
+              f"{CLI_ADAPT_T} frames {CLI_ADAPT_LR}x{CLI_ADAPT_LR}: 2 calibrations, one on "
+              f"the params each clip was served with (adapt_generator's, which are the "
+              f"base's when the guard keeps it) | served: {served} | the clips' launches "
+              f"{clip_c}, the calibrations' {cal} | {secs:.2f} s, peak device memory "
+              f"{peak / 2**30:.3f} GiB | {smi}", flush=True)
+
+        # -- 14g. video mode
+        vid = os.path.join(tmp, "in.mp4")
+        w = cv2.VideoWriter(vid, cv2.VideoWriter_fourcc(*"mp4v"), 24, (480, 270))
+        for f in moving_rect_scene(CLI_T, 270, 480):
+            w.write(cv2.cvtColor((f * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+        w.release()
+        vclip = load_video_frames(vid, CLI_LR)
+        want = build_clip_inference(cfg)(model, torch.from_numpy(vclip)[None].to(dev))[0]
+        handed.clear()
+        text, c, secs, _ = run(cli.main, infer_argv + [
+            "--inferencetype", "video", "--input_dir_LR", vid, "--output_dir",
+            os.path.join(tmp, "out_g")])
+        require(len(handed) == 1 and np.array_equal(handed[0], want.cpu().numpy()),
+                "[14g] video mode differs from build_clip_inference on load_video_frames")
+        require(c == (0, 0, CLI_T, CLI_T - 1), f"[14g] launches {c}")
+        print(f"[14g] cli video mode, a cv2-written mp4 of {CLI_T} frames 480x270 -> "
+              f"{CLI_LR}x{CLI_LR}: bit-equal to build_clip_inference on load_video_frames | "
+              f"launches conv_out_s2d {c[2]}, warp_s2d {c[3]} | {smi}", flush=True)
+
+        # -- 14h. evaluate and live
+        text, _, secs, _ = run(evaluate.main, ["--sr_dir", mp4, "--hr_dir",
+                                               os.path.join(scenes, "scene_1001"),
+                                               "--limit_frames", str(CLI_T)])
+        agg = json.loads(text.strip().splitlines()[-1])
+        require(agg["clips"] == 1 and np.isfinite(agg["psnr_db"]) and 0 < agg["ssim"] <= 1,
+                f"[14h] evaluate {agg}")
+        stats = {}
+        text, c, _, _ = run(lambda a: stats.update(live.main(a)), [
+            "--g_checkpoint", g_ckpt, "--source", LIVE_SOURCE, "--no-display", "--frames",
+            str(CLI_T), "--crop_size", str(CLI_LR)])
+        require(stats.get("frames") == CLI_T and c == (0, 0, CLI_T, CLI_T - 1),
+                f"[14h] live {stats}, launches {c}")
+        print(f"[14h] cli.evaluate (c)'s mp4 vs its 16 source frames: PSNR {agg['psnr_db']:.3f} "
+              f"dB, SSIM {agg['ssim']:.5f} ({secs:.2f} s) | cli.live {LIVE_SOURCE} -> "
+              f"{4 * CLI_LR}x{4 * CLI_LR}, {CLI_T} frames: latency p50 "
+              f"{stats['latency_p50_ms']:.3f} ms, max {stats['latency_max_ms']:.3f} ms "
+              f"(line {FRAME_BUDGET_MS:.1f} ms), {stats['fps']:.1f} fps | launches "
+              f"conv_out_s2d {c[2]}, warp_s2d {c[3]} | {smi}", flush=True)
+    finally:
+        image.save_as_media, image.MediaWriter = real_save, real_writer
+        engine_inference.build_quantized_clip_inference = real_build
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -1119,6 +1435,7 @@ def main() -> None:
                            small_clip, fast, rng)
     del model, clip, infer
     adapt_phase(dev, smi, small, fast_model, sd, small_clip, fast, exact_model)
+    cli_phase(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,8 +5,10 @@ Mirrors the module layout of ``tecogan_tpu`` (the JAX reference, which
 stays as it is): ``ops`` (image range maps, space-to-depth, resize, warp),
 ``models`` (layers, generator, discriminator), ``engine`` (state and
 optimizers, inference, the fused s2d-carry route, losses, the train
-step), ``data`` (synthetic training clips), ``utils`` (checkpoints, the
-weight bridge, FLOP counts, GPU timing) and ``ops/kernels`` with the
+step, adaptation), ``data`` (scene folders, synthetic scenes and
+captures, the input pipeline), ``utils`` (checkpoints, summaries, the
+weight bridge, FLOP counts, GPU timing), ``cli`` (the train / inference
+command line, evaluation, the live stream) and ``ops/kernels`` with the
 hand-written CUDA kernels for Hopper.
 
 The package imports ``torch`` and never ``jax``, nor anything of the JAX

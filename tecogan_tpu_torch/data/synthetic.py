@@ -1,10 +1,10 @@
-"""Synthetic video fixtures (tecogan_tpu/data/synthetic.py), numpy only:
+"""Synthetic video fixtures (tecogan_tpu/data/synthetic.py):
 deterministic moving scenes with known motion for data-free tests,
-benchmarks and smoke training.
+benchmarks and smoke training, and scene folders written from them.
 
 The JAX package downsizes HR to LR with ``cv2.INTER_AREA``; at the
 integer factor 4 that is the mean of each 4x4 block, computed here with
-numpy (the machine with the card has no ``cv2``).
+numpy.
 """
 
 from __future__ import annotations
@@ -92,3 +92,55 @@ def synthetic_scene_batch(batch: int, rnn_n: int, crop_size: int,
         hrs.append(clip.transpose(0, 3, 1, 2))
         lrs.append(downscale_four(clip).transpose(0, 3, 1, 2))
     return np.stack(lrs), np.stack(hrs)
+
+
+def _capture_scene(cls_name: str, num_frames: int, size: int,
+                   seed: int) -> np.ndarray:
+    """A clip from one of the procedural capture classes
+    (``data/capture.py``: chess, book, cube) as (T, H, W, 3) float32 RGB;
+    ``seed`` offsets the scene's phase."""
+    from .capture import create_capture
+
+    cap = create_capture(f"synth:class={cls_name}:noise=0.02:size={size}x{size}")
+    for _ in range(7 * seed % 93):  # deterministic phase offset
+        cap.read()
+    frames = np.empty((num_frames, size, size, 3), np.float32)
+    for t in range(num_frames):
+        ok, bgr = cap.read()
+        if not ok:
+            raise RuntimeError(f"synthetic capture {cls_name} returned no frame")
+        frames[t] = bgr[..., ::-1].astype(np.float32) / 255.0
+    return frames
+
+
+def write_synthetic_scene_folders(root: str, num_scenes: int = 2,
+                                  frames_per_scene: int = 120, size: int = 128,
+                                  start_index: int = 1000, prefix: str = "scene",
+                                  variety: bool = False, seed_offset: int = 0) -> None:
+    """Scene folders in the reference's layout
+    (``<prefix>_%04d/col_high_%04d.png``) from the synthetic generators, the
+    JAX package's pixels written as PNGs with PIL.
+
+    variety=True rotates through moving-rect, the drifting checkerboard
+    (phase ``5 * s``) and the chess / book / cube captures; seed_offset
+    shifts the rotation and the per-scene seed, so chunks generated in
+    parallel do not repeat each other."""
+    import os
+
+    from ..ops.image import save_img
+
+    makers = [lambda s: moving_rect_scene(frames_per_scene, size, size, seed=s)]
+    if variety:
+        makers += [
+            lambda s: chess_scene(frames_per_scene, size, size, phase=5 * s),
+            lambda s: _capture_scene("chess", frames_per_scene, size, s),
+            lambda s: _capture_scene("book", frames_per_scene, size, s),
+            lambda s: _capture_scene("cube", frames_per_scene, size, s),
+        ]
+    for s0 in range(num_scenes):
+        s = s0 + seed_offset
+        d = os.path.join(root, f"{prefix}_{start_index + s0:04d}")
+        os.makedirs(d, exist_ok=True)
+        clip = makers[s % len(makers)](s)
+        for t in range(frames_per_scene):
+            save_img(os.path.join(d, f"col_high_{t:04d}.png"), clip[t])

@@ -1,2 +1,2 @@
-"""Checkpoints, the weight bridge between flax trees and state_dicts, FLOP
-accounting and GPU timing."""
+"""Checkpoints, metric summaries and epoch artifacts, the weight bridge
+between flax trees and state_dicts, FLOP accounting and GPU timing."""

@@ -13,13 +13,16 @@ writes them, so that a checkpoint of either package resumes in the other:
 its flattened layout: ``count``, ``hyperparams//learning_rate``,
 ``inner_state//#0//{count,mu,nu}``) with ``__meta__`` epoch and step;
 ``discrim.ckpt`` holds D's params, its optimizer state and
-``batch_stats``, with ``__meta__`` epoch.
+``batch_stats``, with ``__meta__`` epoch.  ``save_train_state`` can write
+the pair in a background thread (``async_save``), after copying the state
+to the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -126,26 +129,71 @@ def _opt_tree(opt, to_jax) -> Dict[str, Any]:
                                    "nu": to_jax(opt.nu)}}}
 
 
-def save_train_state(output_dir: str, state, epoch: int) -> None:
-    """Write the generator / discriminator checkpoint pair of an
-    ``engine.state.TrainState``: both files to tmp names first, then both
-    renamed, so a crash never publishes a new G beside a stale D."""
-    g_tmp = write_pytree_tmp(
-        generator_ckpt_path(output_dir),
-        {"model_state_dict": generator_params_to_jax(state.params_g),
-         "optimizer_state_dict": _opt_tree(state.opt_g, generator_params_to_jax)},
-        meta={"epoch": epoch, "step": int(state.step)})
+def _train_state_files(state, epoch: int):
+    """The flat host copies of the generator and discriminator files of a
+    checkpoint pair: ``((g_flat, g_meta), (d_flat, d_meta))``."""
     params_d, stats_d = discriminator_params_to_jax(state.params_d,
                                                     state.batch_stats_d)
-    d_tmp = write_pytree_tmp(
-        discriminator_ckpt_path(output_dir),
-        {"model_state_dict": params_d,
+    g = {"model_state_dict": generator_params_to_jax(state.params_g),
+         "optimizer_state_dict": _opt_tree(state.opt_g, generator_params_to_jax)}
+    d = {"model_state_dict": params_d,
          "optimizer_state_dict": _opt_tree(
              state.opt_d, lambda sd: discriminator_params_to_jax(sd, {})[0]),
-         "batch_stats": stats_d},
-        meta={"epoch": epoch})
-    os.replace(g_tmp, generator_ckpt_path(output_dir))
-    os.replace(d_tmp, discriminator_ckpt_path(output_dir))
+         "batch_stats": stats_d}
+
+    def host(tree):  # copies: a CPU tensor's numpy view may share its memory
+        return {k: np.array(v) for k, v in _flatten(tree).items()}
+
+    return ((host(g), {"epoch": epoch, "step": int(state.step)}),
+            (host(d), {"epoch": epoch}))
+
+
+_ASYNC_SAVE: Dict[str, Any] = {"thread": None, "error": None}
+
+
+def save_train_state(output_dir: str, state, epoch: int, async_save: bool = False) -> None:
+    """Write the generator / discriminator checkpoint pair of an
+    ``engine.state.TrainState``: both files to tmp names first, then both
+    renamed, so a crash never publishes a new G beside a stale D.
+
+    The state is copied to the host before this returns.  ``async_save``
+    writes the files in a background thread; a pending save is joined
+    before the next one starts, and :func:`wait_for_async_save` joins it
+    and raises what its writing raised."""
+    wait_for_async_save()
+    (g_flat, g_meta), (d_flat, d_meta) = _train_state_files(state, epoch)
+    gp, dp = generator_ckpt_path(output_dir), discriminator_ckpt_path(output_dir)
+
+    def write():
+        g_tmp = write_pytree_tmp(gp, g_flat, g_meta)
+        d_tmp = write_pytree_tmp(dp, d_flat, d_meta)
+        os.replace(g_tmp, gp)
+        os.replace(d_tmp, dp)
+
+    if not async_save:
+        write()
+        return
+
+    def run():
+        try:
+            write()
+        except BaseException as e:  # raised by wait_for_async_save
+            _ASYNC_SAVE["error"] = e
+
+    t = threading.Thread(target=run, daemon=False)
+    _ASYNC_SAVE["thread"] = t
+    t.start()
+
+
+def wait_for_async_save() -> None:
+    """Join a pending ``save_train_state(async_save=True)``; raises the
+    exception its writing raised, if any."""
+    t, _ASYNC_SAVE["thread"] = _ASYNC_SAVE["thread"], None
+    if t is not None:
+        t.join()
+    err, _ASYNC_SAVE["error"] = _ASYNC_SAVE["error"], None
+    if err is not None:
+        raise err
 
 
 def _like(loaded: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor],

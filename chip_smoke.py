@@ -119,19 +119,43 @@ paper's config.  Phases:
    bit-equal to the engine on ``load_video_frames``; (h) ``cli.evaluate``
    on (c)'s mp4 against its source frames, and ``cli.live`` on a
    synthetic chess source (16 frames, ``--crop_size 270``): frame latency
-   p50 and max, launches.
+   p50 and max, launches;
+15. the multi-rank paths (``tecogan_tpu_torch.parallel``), ranks spawned
+   by ``parallel.mesh.spawn``; the machine has one card, so every rank
+   uses it and no figure here is a multi-card one: (a) NCCL at world 1:
+   the spatial fused route (bf16, then int8) on the full-width clip
+   bit-equal to the single-device clip, and a DP train step (paper's
+   config, fp32, TF32 off) against the single-process step; (b) 2 and 3
+   gloo ranks sharing the card: the spatial fused route in bf16 and int8
+   against the single-device clip (max 2e-2, mean 2e-3, PSNR > 40 dB;
+   bit-equality printed), at 2 ranks the exact fp32 route (bug_parity)
+   within 1e-4, every rank's hand-kernel launches and each kernel's last
+   launch on its halo'd block against its plain version (the kernel bars);
+   fps (labelled: ranks sharing one card), the all-gathers' ms and MB a
+   rank a frame against ``tecogan_tpu/parallel/spatial.py:31-36``'s
+   reckoning; at 2 ranks the DP step (B=2 a rank) against the
+   single-process step on B=4 in fp32 (``gen_loss`` each step and
+   ``d_loss`` at step 0 within 1e-4, the D-balance decisions equal, the
+   state the same on both ranks), its ms in bf16, one K=2 call of the
+   multi-step, and DP serving and DP int8 serving of 2 streams bit-equal
+   to each stream's single-device clip; (e) the FNet step at the paper's
+   config (bf16): 3 steps, ms a step, peak memory, and a tiny fp32 config
+   against the CPU within 1e-4; (f) ``--spatial_shards 2`` and
+   ``--data_axis 2`` through ``cli.main.main``, clamped to the one card
+   with the JAX package's warning.
 
-Phases 9-11 and 13a, c-e run no hand kernel: training runs cuDNN convs and
+Phases 9-11, 13a, c-e, and 15's train steps run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 kernels' times are a frame's: the
 sum over the frame's launches at each layer shape (37 and 2).
 
-Phases 7, 8, 13f and 14 hold cuDNN to deterministic algorithms: the transposed
-convs' default algorithm may sum in a different order from one call to
-the next, and these phases compare paths bit for bit.
+Phases 7, 8, 13f, 14 and 15 hold cuDNN to deterministic algorithms: the
+transposed convs' default algorithm may sum in a different order from
+one call to the next, and these phases compare paths bit for bit.
 
 Every failed check exits non-zero; there is no CPU path.  The line before
-the card's line is the kernels' JSON record; the last line of standard
+the card's line is the kernels' JSON record (``launches_multi``: each
+kernel's launches a rank on phase 15's paths); the last line of standard
 output is the JSON device record.
 """
 
@@ -1152,6 +1176,562 @@ def cli_phase(dev, smi) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-rank paths on the one card
+# ---------------------------------------------------------------------------
+
+SPATIAL_T = 8
+# bf16 frames of a row-sharded clip against the single-device clip:
+# tests/test_spatial.py's bf16 bar (max, mean abs) and the PSNR bar above
+SPATIAL_MAX, SPATIAL_MEAN = 2e-2, 2e-3
+EXACT_SPATIAL_TOL = 1e-4             # the port's exact bar (tests/test_torch_port_inference.py)
+# tecogan_tpu/parallel/spatial.py:31-36 reckons 20-40 MB of collective
+# traffic a frame at 1080p (one 12.4 MB and one 1.5 MB all-gather, ~35 halos)
+RECKONED_MB = (20.0, 40.0)
+DP_TIMED_STEPS = 3
+FNET_WARMUP, FNET_STEPS = 1, 3
+FNET_TINY = dict(crop_size=16, RNN_N=3, num_resblock=1, batch_size=1, precision="fp32")
+
+
+def _model_on(cfg, params, dev):
+    from tecogan_tpu_torch.engine.state import model_defs
+    from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
+
+    model = model_defs(cfg, device=dev)
+    model.load_state_dict(generator_state_dict_from_jax(params))
+    return model.eval()
+
+
+def _kernel_counts():
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+
+    return {"conv_out_s2d": kmod.launch_count, "warp_s2d": wmod.launch_count,
+            "int8_conv3x3": qmod.conv3x3_launch_count, "int8_up2x": qmod.up2x_launch_count}
+
+
+def _reset_counts():
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+
+    kmod.launch_count = wmod.launch_count = 0
+    qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+
+
+class _Recorder:
+    """Keeps the arguments of the last launch of each hand kernel on the
+    rank's path (int8_conv3x3 with and without its residual), through the
+    names engine/fused.py and engine/quant.py call; the launches still run
+    and count."""
+
+    def __init__(self):
+        from tecogan_tpu_torch.engine import fused, quant
+
+        self.last, self.saved = {}, []
+        for mod, name in ((fused, "conv_out_s2d_cuda"), (fused, "warp_s2d_feedback_cuda"),
+                          (quant, "int8_conv3x3_cuda"), (quant, "int8_up2x_cuda")):
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+            setattr(mod, name, self._wrap(name, real))
+
+    def _wrap(self, name, real):
+        def call(*args):
+            key = name
+            if name == "int8_conv3x3_cuda":
+                key += "+res" if len(args) > 6 and args[6] is not None else ""
+            self.last[key] = args
+            return real(*args)
+        return call
+
+    def restore(self):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+    def check(self) -> dict:
+        """Each recorded launch again against its plain version: the kernel
+        agreement bars (conv_out_s2d, warp_s2d) or bit-equality (int8)."""
+        from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+        from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+        from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+
+        out = {}
+        for key, args in self.last.items():
+            if key == "conv_out_s2d_cuda":
+                feat, k, b = args
+                got = kmod.conv_out_s2d_cuda(feat, k, b).float()
+                want = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
+                err = (got - want).abs()
+                out[key] = {"rows": feat.shape[1], "max": float(err.max()),
+                            "mean": float(err.mean()),
+                            "ok": float(err.max()) <= MAX_ERR and float(err.mean()) <= MEAN_ERR}
+            elif key == "warp_s2d_feedback_cuda":
+                got = wmod.warp_s2d_feedback_cuda(*args).float()
+                err = (got - wmod.warp_s2d_feedback_reference(*args)).abs()
+                out[key] = {"rows": args[0].shape[1], "max": float(err.max()),
+                            "mean": float(err.mean()), "ok": float(err.max()) <= WARP_MAX_ERR
+                            and float(err.mean()) <= WARP_MEAN_ERR}
+            else:
+                up = key.startswith("int8_up2x")
+                kernel = qmod.int8_up2x_cuda if up else qmod.int8_conv3x3_cuda
+                plain = qmod.int8_up2x_reference if up else qmod.int8_conv3x3_reference
+                got, want = kernel(*args), plain(*args)
+                out[key] = {"rows": args[0].shape[1],
+                            "max": float((got.float() - want.float()).abs().max()),
+                            "ok": bool(torch.equal(got, want))}
+        torch.cuda.synchronize()
+        return out
+
+
+class _GatherClock:
+    """``torch.distributed.all_gather`` timed on the host (synchronised on
+    both sides, so the collective's own time) with the bytes each rank
+    sends and receives; on only while ``on`` is set."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, dist.all_gather
+        self.ms = self.bytes = 0.0
+        self.calls, self.on = 0, False
+        dist.all_gather = self.call
+
+    def call(self, tensor_list, tensor, group=None, async_op=False):
+        if not self.on:
+            return self.real(tensor_list, tensor, group=group, async_op=async_op)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = self.real(tensor_list, tensor, group=group, async_op=async_op)
+        torch.cuda.synchronize()
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.bytes += tensor.numel() * tensor.element_size() * len(tensor_list)
+        self.calls += 1
+        return work
+
+    def restore(self):
+        self.dist.all_gather = self.real
+
+
+def _frames_apart(got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()), "psnr": psnr(got, want),
+            "equal": bool(torch.equal(got, want))}
+
+
+def _spatial_check(dev, mesh, main: bool, exact: bool) -> dict:
+    """The spatial fused route (bf16, then int8), and with ``exact`` the
+    exact fp32 route (``bug_parity``), on a full-width clip; rank 0 holds
+    each against the single-device clip."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.inference import (build_clip_inference,
+                                                    build_quantized_clip_inference)
+    from tecogan_tpu_torch.engine.state import init_generator
+    from tecogan_tpu_torch.parallel import (build_spatial_clip_inference,
+                                            build_spatial_fused_clip_inference)
+    from tecogan_tpu_torch.parallel.dp import calibrate_on_rank0
+
+    cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False, use_pallas=True)
+    params = init_generator(cfg, torch.Generator().manual_seed(0))
+    model = _model_on(cfg, params, dev)
+    rng = np.random.default_rng(0)
+    clip = torch.from_numpy(rng.random((1, SPATIAL_T, *CLIP[2:]), np.float32)).to(dev)
+    res = {"n": mesh.size}
+    infer = build_spatial_fused_clip_inference(cfg, mesh)
+    infer(model, clip)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sr = infer(model, clip)
+    torch.cuda.synchronize()
+    res["fps"] = SPATIAL_T / (time.perf_counter() - t0)
+    res["bf16_counts"] = _kernel_counts()
+    clock = _GatherClock()
+    clock.on = True
+    infer(model, clip)
+    clock.on = False
+    clock.restore()
+    res["gather_ms_frame"] = clock.ms / SPATIAL_T
+    res["gather_mb_frame"] = clock.bytes / SPATIAL_T / 1e6
+    res["gathers_frame"] = clock.calls / SPATIAL_T
+
+    prepare, infer_q = build_quantized_clip_inference(cfg)
+    qtail = calibrate_on_rank0(mesh, prepare, model, params, clip, 8)
+    infer_sq = build_spatial_fused_clip_inference(cfg, mesh, quantize=True)
+    recorder = _Recorder()
+    _reset_counts()
+    sq = infer_sq(model, qtail, clip)
+    torch.cuda.synchronize()
+    res["int8_counts"] = _kernel_counts()
+    recorder.restore()
+    res["kernels"] = recorder.check()
+    if main:
+        res["bf16"] = _frames_apart(sr, build_clip_inference(cfg)(model, clip))
+        res["int8"] = _frames_apart(sq, infer_q(model, qtail, clip))
+    del sr, sq
+    if exact:
+        ecfg = cfg.replace(precision="fp32", use_pallas=False, bug_parity=True)
+        emodel = _model_on(ecfg, params, dev)
+        se = build_spatial_clip_inference(ecfg, mesh)(emodel, clip)
+        if main:
+            res["exact"] = _frames_apart(se, build_clip_inference(ecfg)(emodel, clip))
+    return res
+
+
+def _train_leaves(state) -> dict:
+    return {**{f"g/{k}": v for k, v in state.params_g.items()},
+            **{f"d/{k}": v for k, v in state.params_d.items()},
+            **{f"bn/{k}": v for k, v in state.batch_stats_d.items()}}
+
+
+def _dp_train_check(dev, mesh, main: bool, steps: int, timed: bool) -> dict:
+    """``steps`` DP steps at the paper's config (B=4 global) in fp32 (TF32
+    off) from seed-0 weights on synthetic batches; rank 0 runs the
+    single-process steps on the global batches and holds the losses, the
+    D-balance decisions and the leaves against them (in bf16 the two
+    differ by bf16 roundings, which can flip the D-balance gate).  With
+    ``timed``: ms a DP step in bf16, the served precision, over
+    DP_TIMED_STEPS after a warm-up step, and one K=2 call of
+    ``build_dp_multi_train_step``."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+    from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
+                                                state_from_params)
+    from tecogan_tpu_torch.engine.train import build_train_step
+    from tecogan_tpu_torch.parallel import (build_dp_multi_train_step, build_dp_train_step,
+                                            replicate_state, shard_batch, shard_multi_batch)
+
+    cfg = TecoConfig(precision="fp32", bug_parity=False)  # the paper's config, B=4
+    g = torch.Generator().manual_seed(0)
+    weights = (init_generator(cfg, g), *init_discriminator(cfg, g))
+    batches = [synthetic_scene_batch(cfg.batch_size, cfg.RNN_N, cfg.crop_size,
+                                     seed=i * cfg.batch_size) for i in range(steps)]
+    state = replicate_state(mesh, state_from_params(cfg, *weights, device=dev))
+    step = build_dp_train_step(cfg, mesh)
+    res = {"losses": [], "withD": []}
+    _reset_counts()
+    for lr, hr in batches:
+        state, m, _ = step(state, *shard_batch(mesh, lr, hr))
+        res["losses"].append((float(m["gen_loss"]), float(m["d_loss"])))
+        res["withD"].append(float(m["withD_counter"]))
+    res["counts"] = _kernel_counts()
+    leaves = _train_leaves(state)
+    res["digest"] = float(sum(float(v.double().sum()) for v in leaves.values()))
+    if main:
+        ref = state_from_params(cfg, *weights, device=dev)
+        single = build_train_step(cfg, device=dev)
+        res["single_losses"], res["single_withD"] = [], []
+        for lr, hr in batches:
+            ref, m, _ = single(ref, torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev))
+            res["single_losses"].append((float(m["gen_loss"]), float(m["d_loss"])))
+            res["single_withD"].append(float(m["withD_counter"]))
+        want = _train_leaves(ref)
+        res["leaf_max_abs"] = max(float((leaves[k] - v).abs().max()) for k, v in want.items())
+        res["leaves_equal"] = all(torch.equal(leaves[k], v) for k, v in want.items())
+        del ref, want
+    if timed:
+        cfg = cfg.replace(precision="bf16")
+        state = replicate_state(mesh, state_from_params(cfg, *weights, device=dev))
+        step = build_dp_train_step(cfg, mesh)
+        lr, hr = shard_batch(mesh, *batches[-1])
+        state, m, _ = step(state, lr, hr)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            state, m, _ = step(state, lr, hr)
+        torch.cuda.synchronize()
+        res["ms_step"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
+        kcfg = cfg.replace(steps_per_dispatch=2)
+        lr_k = np.stack([b[0] for b in batches[:2]])
+        hr_k = np.stack([b[1] for b in batches[:2]])
+        state, mk, _ = build_dp_multi_train_step(kcfg, mesh)(
+            state, *shard_multi_batch(mesh, lr_k, hr_k))
+        res["multi_losses"] = [float(v) for v in mk["gen_loss"]]
+        res["multi_digest"] = float(sum(float(v.double().sum())
+                                        for v in _train_leaves(state).values()))
+    return res
+
+
+def _dp_serve_check(dev, mesh, main: bool) -> dict:
+    """Two full-width streams, one a rank, through DP serving and DP int8
+    serving; rank 0 holds each stream against its single-device clip."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.inference import (build_clip_inference,
+                                                    build_quantized_clip_inference)
+    from tecogan_tpu_torch.engine.state import init_generator
+    from tecogan_tpu_torch.parallel import (build_dp_inference, build_dp_quantized_inference,
+                                            shard_batch)
+
+    cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False, use_pallas=True)
+    params = init_generator(cfg, torch.Generator().manual_seed(0))
+    model = _model_on(cfg, params, dev)
+    rng = np.random.default_rng(1)
+    clips = rng.random((mesh.size, SPATIAL_T, *CLIP[2:]), np.float32)
+    streams = shard_batch(mesh, clips)
+    res = {}
+    _reset_counts()
+    sr = build_dp_inference(cfg, mesh)(model, streams)
+    torch.cuda.synchronize()
+    res["bf16_counts"] = _kernel_counts()
+    prepare, infer_q = build_dp_quantized_inference(cfg, mesh)
+    qtail = prepare(model, params, torch.from_numpy(clips).to(dev), frames=8)
+    _reset_counts()
+    sq = infer_q(model, qtail, streams)
+    torch.cuda.synchronize()
+    res["int8_counts"] = _kernel_counts()
+    if main:
+        _, single_q = build_quantized_clip_inference(cfg)
+        single = build_clip_inference(cfg)
+        res["bf16_equal"] = res["int8_equal"] = True
+        for b in range(mesh.size):
+            one = torch.from_numpy(clips[b:b + 1]).to(dev)
+            res["bf16_equal"] &= bool(torch.equal(sr[b:b + 1], single(model, one)))
+            res["int8_equal"] &= bool(torch.equal(sq[b:b + 1], single_q(model, qtail, one)))
+    return res
+
+
+def _phase15_rank(dev, out: str, checks: tuple) -> None:
+    """One rank of phase 15: ``checks`` in order, every rank alike; each
+    rank writes its results as JSON to ``out/r<rank>.json``."""
+    import torch.distributed as dist
+
+    from tecogan_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh(device=dev)
+    main = mesh.rank == 0
+    res = {"backend": dist.get_backend(), "world": mesh.size}
+    for check in checks:
+        if check == "spatial":
+            res[check] = _spatial_check(dev, mesh, main, exact=mesh.size == 2)
+        elif check == "dp_train":
+            res[check] = _dp_train_check(dev, mesh, main, steps=2 if mesh.size > 1 else 1,
+                                         timed=mesh.size > 1)
+        elif check == "dp_serve":
+            res[check] = _dp_serve_check(dev, mesh, main)
+        dist.barrier()
+    with open(os.path.join(out, f"r{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def multi_phase(dev, smi) -> dict:
+    """Phase 15: the multi-rank paths.  Returns each hand kernel's launches
+    a rank on them, for the kernels' record."""
+    import tempfile
+
+    from tecogan_tpu_torch.parallel import spawn
+
+    launches = {}
+    runs = (("15a", 1, "nccl", ("spatial", "dp_train")),
+            ("15b", 2, "gloo", ("spatial", "dp_train", "dp_serve")),
+            ("15b", 3, "gloo", ("spatial",)))
+    for tag, world, backend, checks in runs:
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_{world}_")
+        t0 = time.perf_counter()
+        spawn(_phase15_rank, world, device="cuda" if backend == "nccl" else "cuda:0",
+              backend=backend, init_file=os.path.join(out, "rdzv"), args=(out, checks))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"r{r}.json")) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(out, ignore_errors=True)
+        secs = time.perf_counter() - t0
+        where = (f"{world} rank{'s' if world > 1 else ''} over {backend} "
+                 f"({'one card a rank' if backend == 'nccl' else 'sharing the one card'})")
+        print(f"[{tag}] {where}: checks {checks}, {secs:.1f} s with the ranks' start", flush=True)
+        main = ranks[0]
+        require(all(r["backend"] == backend and r["world"] == world for r in ranks),
+                f"[{tag}] ranks report {[(r['backend'], r['world']) for r in ranks]}")
+
+        sp = main["spatial"]
+        for route in ("bf16", "int8"):
+            d = sp[route]
+            line = (f"[{tag}] spatial fused {route}, {world} rank(s) vs the single-device "
+                    f"clip, 270x480 -> 1080x1920 T={SPATIAL_T}: max {d['max']:.3e} mean "
+                    f"{d['mean']:.3e} PSNR {d['psnr']:.2f} dB, bit-equal {d['equal']}")
+            print(line, flush=True)
+            if world == 1:
+                require(d["equal"], f"[{tag}] spatial {route} at world 1 is not bit-equal")
+            else:
+                require(d["max"] <= SPATIAL_MAX and d["mean"] <= SPATIAL_MEAN
+                        and d["psnr"] > PSNR_BAR_DB, f"[{tag}] spatial {route}: {d}")
+        if "exact" in sp:
+            d = sp["exact"]
+            print(f"[{tag}] spatial exact fp32 (bug_parity), {world} ranks vs the "
+                  f"single-device clip: max {d['max']:.3e} (bar {EXACT_SPATIAL_TOL})", flush=True)
+            require(d["max"] <= EXACT_SPATIAL_TOL, f"[{tag}] spatial exact: {d}")
+        for r, rank in enumerate(ranks):
+            s = rank["spatial"]
+            want_bf16 = {"conv_out_s2d": SPATIAL_T, "warp_s2d": SPATIAL_T - 1,
+                         "int8_conv3x3": 0, "int8_up2x": 0}
+            want_int8 = dict(want_bf16, int8_conv3x3=37 * SPATIAL_T, int8_up2x=2 * SPATIAL_T)
+            require(s["bf16_counts"] == want_bf16 and s["int8_counts"] == want_int8,
+                    f"[{tag}] rank {r} launches {s['bf16_counts']} / {s['int8_counts']}")
+            bad = {k: v for k, v in s["kernels"].items() if not v["ok"]}
+            require(len(s["kernels"]) == 5 and not bad,
+                    f"[{tag}] rank {r} kernels on its blocks: {s['kernels']}")
+        if world > 1:
+            launches[f"spatial int8, {world} ranks, a rank"] = ranks[0]["spatial"]["int8_counts"]
+            launches[f"spatial bf16, {world} ranks, a rank"] = ranks[0]["spatial"]["bf16_counts"]
+        print(f"[{tag}] spatial, {world} rank(s): hand kernels a rank bf16 "
+              f"{sp['bf16_counts']}, int8 {sp['int8_counts']}; each kernel's last launch on "
+              "its block against the plain version: " + ", ".join(
+                  f"{k} ({v['rows']} rows) max {v['max']:.2e}" for k, v in sp["kernels"].items()),
+              flush=True)
+        print(f"[{tag}] spatial fused bf16, {world} rank(s) on one card: {sp['fps']:.3f} fps "
+              f"({'ranks share one card: not a scaling figure' if world > 1 else 'NCCL'}) | "
+              f"all-gathers {sp['gathers_frame']:.0f} a frame, {sp['gather_ms_frame']:.3f} ms "
+              f"a frame (host clock, synchronised; gloo stages through the host)"
+              f", {sp['gather_mb_frame']:.2f} MB a rank a frame against "
+              f"{RECKONED_MB[0]:.0f}-{RECKONED_MB[1]:.0f} MB reckoned at spatial.py:31-36 | {smi}",
+              flush=True)
+
+        if "dp_train" in main:
+            t = main["dp_train"]
+            require(all(rank["dp_train"]["digest"] == t["digest"]
+                        and rank["dp_train"]["withD"] == t["withD"] for rank in ranks),
+                    f"[{tag}] DP train state differs between ranks")
+            apart = [(rel(a, c), rel(b, d)) for (a, b), (c, d)
+                     in zip(t["losses"], t["single_losses"])]
+            print(f"[{tag}] DP train step, {world} rank(s), B=4 global, fp32 (TF32 off): "
+                  f"losses {t['losses']} vs single-process {t['single_losses']} (relative "
+                  f"{apart}; bar {CARD_CPU_RTOL}: gen_loss each step, d_loss at step 0, as "
+                  f"phase 10); after {len(apart)} step(s) params and BN "
+                  f"statistics {t['leaf_max_abs']:.3e} from the single-process state, "
+                  f"bit-equal {t['leaves_equal']}; withD {t['withD']} on every rank, "
+                  f"single-process {t['single_withD']}; hand kernels {t['counts']}", flush=True)
+            # Adam's first step is about sign(g) lr, so a D param whose gradient
+            # lies near 0 may step the other way: d_loss is held at step 0 only
+            require(all(g <= CARD_CPU_RTOL for g, _ in apart) and apart[0][1] <= CARD_CPU_RTOL,
+                    f"[{tag}] DP losses {apart}")
+            require(t["withD"] == t["single_withD"], f"[{tag}] D-balance decisions differ")
+            require(sum(t["counts"].values()) == 0, f"[{tag}] DP step launched {t['counts']}")
+            if world == 1:
+                require(t["leaves_equal"] or t["leaf_max_abs"] <= LEAF_TOL,
+                        f"[{tag}] DP step at world 1: {t['leaf_max_abs']}")
+            if "ms_step" in t:
+                require(all(rank["dp_train"]["multi_digest"] == t["multi_digest"]
+                            for rank in ranks) and np.all(np.isfinite(t["multi_losses"])),
+                        f"[{tag}] K=2 DP steps: {t['multi_losses']}")
+                print(f"[{tag}] DP train step, {world} ranks sharing one card (2 samples a "
+                      f"rank, bf16): {t['ms_step']:.3f} ms a step (not a scaling figure) | K=2 "
+                      f"multi-step losses {t['multi_losses']}, same state on every rank "
+                      f"| {smi}", flush=True)
+        if "dp_serve" in main:
+            s = main["dp_serve"]
+            require(s["bf16_equal"] and s["int8_equal"],
+                    f"[{tag}] DP serving differs from single-device: {s}")
+            for rank in ranks:
+                require(rank["dp_serve"]["bf16_counts"] == dict(
+                    conv_out_s2d=SPATIAL_T, warp_s2d=SPATIAL_T - 1, int8_conv3x3=0,
+                    int8_up2x=0), f"[{tag}] DP serving launches {rank['dp_serve']}")
+            launches[f"DP serving bf16, {world} ranks, a rank"] = s["bf16_counts"]
+            launches[f"DP serving int8, {world} ranks, a rank"] = s["int8_counts"]
+            print(f"[{tag}] DP serving, {world} streams one a rank: bf16 and int8 bit-equal "
+                  f"to each stream's single-device clip | launches a rank bf16 "
+                  f"{s['bf16_counts']}, int8 {s['int8_counts']}", flush=True)
+    fnet_phase(dev, smi)
+    cli_multi_phase(dev, smi)
+    return launches
+
+
+def fnet_phase(dev, smi) -> None:
+    """Phase 15e: the FNet variant's train step."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+    from tecogan_tpu_torch.engine.fnet_train import build_fnet_train_step
+
+    cfg = TecoConfig(precision="bf16")  # the paper's config: B=4, RNN_N=10, crop 32
+    init, step = build_fnet_train_step(cfg, device=dev)
+    state = init(torch.Generator().manual_seed(0))
+    lr, hr = (torch.from_numpy(a).to(dev) for a in synthetic_scene_batch(
+        cfg.batch_size, cfg.RNN_N, cfg.crop_size, seed=0))
+    for _ in range(FNET_WARMUP):
+        state, m = step(state, lr, hr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(FNET_STEPS):
+        state, m = step(state, lr, hr)
+        losses.append((float(m["gen_loss"]), float(m["l2_warp_loss"])))
+    secs = (time.perf_counter() - t0) / FNET_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(np.all(np.isfinite(losses)), f"[15e] FNet losses {losses}")
+    require(sum(_kernel_counts().values()) == 0, f"[15e] FNet step launched {_kernel_counts()}")
+
+    tiny = TecoConfig(**FNET_TINY)
+    apart = []
+    g = np.random.default_rng(3)
+    lr_t = torch.from_numpy(g.random((1, 3, 3, 16, 16), np.float32))
+    hr_t = torch.from_numpy(g.random((1, 3, 3, 64, 64), np.float32))
+    states = {}
+    for where in ("cpu", dev):
+        init_t, step_t = build_fnet_train_step(tiny, device=where)
+        s = init_t(torch.Generator().manual_seed(1))
+        out = []
+        for _ in range(3):
+            s, mt = step_t(s, lr_t.to(where), hr_t.to(where))
+            out.append(float(mt["gen_loss"]))
+        states[str(where)] = out
+    apart = [rel(a, b) for a, b in zip(states[str(dev)], states["cpu"])]
+    print(f"[15e] FNet train step, B=4 RNN_N=10 crop 32, 16 resblocks, bf16: "
+          f"{secs * 1e3:.3f} ms a step (mean of {FNET_STEPS} after {FNET_WARMUP} warm-up), "
+          f"peak {peak / 2**30:.2f} GiB, losses (gen, warp) {losses} | tiny fp32 (TF32 off) "
+          f"card vs CPU, 3 steps: gen_loss relative {apart} (bar {CARD_CPU_RTOL}) | {smi}",
+          flush=True)
+    require(all(a <= CARD_CPU_RTOL for a in apart), f"[15e] card vs CPU {apart}")
+
+
+def cli_multi_phase(dev, smi) -> None:
+    """Phase 15f: --spatial_shards 2 and --data_axis 2 through the command
+    line on the one card: both clamp to it with the JAX package's warning
+    and run."""
+    import tempfile
+    import warnings
+
+    from tecogan_tpu_torch.cli import main as cli
+    from tecogan_tpu_torch.data.synthetic import write_synthetic_scene_folders
+    from tecogan_tpu_torch.engine.state import init_state
+    from tecogan_tpu_torch.utils.checkpoint import save_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli15_")
+    try:
+        scenes = os.path.join(tmp, "scenes")
+        write_synthetic_scene_folders(scenes, num_scenes=2, frames_per_scene=120, size=64)
+        tiny = ["--crop_size", "16", "--RNN_N", "10", "--num_resblock", "2",
+                "--discrim_resblocks", "1", "--discrim_channels", "16", "--batch_size", "2",
+                "--bug_parity", "False"]
+        cfg = cli.parse_config(tiny)
+        save_train_state(os.path.join(tmp, "ck"), init_state(
+            cfg, torch.Generator().manual_seed(0), device=dev), 0)
+        argv = {"inference": tiny + ["--mode", "inference", "--input_dir_LR", scenes,
+                                     "--g_checkpoint", os.path.join(tmp, "ck", "generator.ckpt"),
+                                     "--output_dir", os.path.join(tmp, "inf"),
+                                     "--spatial_shards", "2"],
+                "train": tiny + ["--mode", "train", "--input_video_dir", scenes, "--str_dir",
+                                 "1000", "--end_dir", "1001", "--output_dir",
+                                 os.path.join(tmp, "tr"), "--summary_dir",
+                                 os.path.join(tmp, "sum"), "--data_axis", "2",
+                                 "--steps_per_epoch", "1", "--max_epochs", "1"]}
+        for mode, args in argv.items():
+            flag = "--spatial_shards" if mode == "inference" else "--data_axis"
+            with warnings.catch_warnings(record=True) as caught, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                warnings.simplefilter("always")
+                cli.main(args)
+            said = [str(w.message) for w in caught if f"{flag} 2 exceeds" in str(w.message)]
+            require(len(said) == 1, f"[15f] {mode}: warnings {[str(w.message) for w in caught]}")
+            print(f"[15f] cli {mode} {flag} 2 with {torch.cuda.device_count()} card: "
+                  f"'{said[0]}' and ran on it", flush=True)
+        require(os.path.exists(os.path.join(tmp, "inf", "output0.mp4")), "[15f] no mp4")
+        require(os.path.exists(os.path.join(tmp, "tr", "generator.ckpt")), "[15f] no ckpt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -1436,11 +2016,16 @@ def main() -> None:
     del model, clip, infer
     adapt_phase(dev, smi, small, fast_model, sd, small_clip, fast, exact_model)
     cli_phase(dev, smi)
+    del fast_model, exact_model, fast
+    torch.cuda.empty_cache()
+    multi = multi_phase(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (conv, warp, *int8_recs)]}))
+    records = [{k: rec[k] for k in keys} for rec in (conv, warp, *int8_recs)]
+    for rec in records:  # phase 15's paths: each kernel's launches a rank
+        rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

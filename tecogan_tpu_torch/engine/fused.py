@@ -106,20 +106,26 @@ def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor,
     return conv_out_s2d(feat, *conv_out_params(model))
 
 
+def carry_feedback(carry_s2d: torch.Tensor, prev_lr: torch.Tensor,
+                   warp_group: int = 4) -> torch.Tensor:
+    """The warp's feedback (B, H, W, 48) bf16 from the s2d carry.  The JAX
+    route warps the frame through its u8 table where ``warp_group``
+    divides the HR width 4W, which gives the s2d route's result bit for
+    bit: that is the ``warp_s2d`` kernel here; other widths warp the bf16
+    frame (:func:`frame_warp_feedback`)."""
+    if (4 * carry_s2d.shape[2]) % warp_group == 0:
+        return warp_s2d_feedback(carry_s2d, prev_lr)
+    return frame_warp_feedback(carry_s2d, prev_lr)
+
+
 def fused_sr_step_s2d(model: Generator, carry_s2d: torch.Tensor,
                       prev_lr: torch.Tensor, cur_lr: torch.Tensor,
                       tail_fn: Optional[Callable] = None,
                       warp_group: int = 4) -> torch.Tensor:
     """One recurrent step, s2d carry in -> s2d carry out (NHWC);
-    ``tail_fn`` as in :func:`fused_first_frame_s2d`.  The JAX route warps
-    the frame through its u8 table where ``warp_group`` divides the HR
-    width 4W, which gives the s2d route's result bit for bit: that is the
-    ``warp_s2d`` kernel here; other widths warp the bf16 frame
-    (:func:`frame_warp_feedback`)."""
-    if (4 * carry_s2d.shape[2]) % warp_group == 0:
-        feedback = warp_s2d_feedback(carry_s2d, prev_lr)
-    else:
-        feedback = frame_warp_feedback(carry_s2d, prev_lr)
+    ``tail_fn`` as in :func:`fused_first_frame_s2d`, the warp as
+    :func:`carry_feedback`."""
+    feedback = carry_feedback(carry_s2d, prev_lr, warp_group)
     net = fused_first_layer(model, cur_lr, feedback)
     feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
     return conv_out_s2d(feat, *conv_out_params(model))

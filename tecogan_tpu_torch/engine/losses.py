@@ -149,16 +149,31 @@ def d_input_spec(cfg: TecoConfig) -> Tuple[int, int]:
     return 9, h4
 
 
+def _global_rows(x: torch.Tensor, b: int, group) -> torch.Tensor:
+    """Rows ``[r b, (r + 1) b)`` of the group's ranks' ``x`` joined along
+    dim 0 in rank order, r this rank: the rows a rank's ``b`` samples read
+    where the reference's reshape crosses samples."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(group.size())]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    r = dist.get_rank(group)
+    return torch.cat(parts)[r * b:(r + 1) * b]
+
+
 def assemble_triplets(r_inputs: torch.Tensor, r_targets: torch.Tensor,
                       gen_outputs: torch.Tensor, gen_flow: torch.Tensor,
-                      cfg: TecoConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                      cfg: TecoConfig, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The real/fake discriminator inputs (train.py:129-199), NCHW.
 
     Merged (``Dt_mergeDs``, default): 27-channel triplets of [before-warp,
     warped by T_vel, bilinear-upscaled LR], the warped part center-cropped
     by crop_dt and zero-padded back.  Unmerged: the 9-channel warped
     triplet alone at the cropped size.  fake_in carries gradients to the
-    generator; detaching is the caller's choice."""
+    generator; detaching is the caller's choice.  With a data-parallel
+    ``group`` the batch is this rank's share of the global one; the
+    ``bug_parity`` backward flow, whose reshape reads other samples' rows,
+    reads them from the global batch."""
     B, T, C, H, W = r_inputs.shape
     H4, W4 = 4 * H, 4 * W
     t_size = 3 * (T // 3)
@@ -185,7 +200,9 @@ def assemble_triplets(r_inputs: torch.Tensor, r_targets: torch.Tensor,
                 f"t_size//3 == 3; got t_size={t_size})")
         back = torch.cat([r_inputs[:, 2:t_size:3], r_inputs[:, 1:t_size:3]],
                          dim=1).reshape(t_batch, 2 * C, H, W)
-        back_up = upscale_four(back[0:B] * 4.0)
+        # rows 0:B of the global batch's back; its rows b read sample b // 3
+        back = back[0:B] if group is None else _global_rows(back, B, group)
+        back_up = upscale_four(back * 4.0)
         v_nxt = preprocess(back_up.reshape(B, n_trip, 2, H4, W4))
     else:
         # intended semantics (any T): the backward pseudo-flow of triplet
@@ -229,14 +246,15 @@ def assemble_triplets(r_inputs: torch.Tensor, r_targets: torch.Tensor,
 
 
 def apply_discriminator(disc, params_d: Tensors, batch_stats: Tensors,
-                        x_nchw: torch.Tensor, mutable: bool
+                        x_nchw: torch.Tensor, mutable: bool, group=None
                         ) -> Tuple[torch.Tensor, List[torch.Tensor], Tensors]:
     """D on an NCHW input with train-mode batch statistics.  Returns
     (score, layers, stats): ``stats`` is ``batch_stats`` advanced by this
     batch (``0.9 * old + 0.1 * batch``) when ``mutable``, else
-    ``batch_stats`` as given."""
+    ``batch_stats`` as given.  ``group``: the data-parallel process group,
+    whose global batch the statistics are (``models.layers.BatchNorm``)."""
     x = x_nchw.permute(0, 2, 3, 1)
-    score, layers, batch = functional_call(disc, params_d, (x,))
+    score, layers, batch = functional_call(disc, params_d, (x,), {"group": group})
     if not mutable:
         return score, layers, batch_stats
     new = {k: BN_MOMENTUM * v + (1.0 - BN_MOMENTUM) * batch[k]
@@ -284,11 +302,13 @@ def _f32(x: float) -> float:
 def tecogan_losses(gen, disc, params_g: Tensors, params_d: Tensors,
                    batch_stats_d: Tensors, r_inputs: torch.Tensor,
                    r_targets: torch.Tensor, step: int, cfg: TecoConfig,
-                   vgg_apply=None):
+                   vgg_apply=None, group=None):
     """The full TecoGAN objective (train.py:49-348).  Returns (gen_loss,
     aux): aux holds the metrics, the generator outputs and the detached
     D inputs ``real_in`` / ``fake_in``.  ``params_d`` should not require
-    grad: D is frozen here, and its running statistics are left as given."""
+    grad: D is frozen here, and its running statistics are left as given.
+    ``group``: the data-parallel group of D's BN statistics; the loss and
+    the metrics are this rank's (engine/train.py reduces them)."""
     if cfg.pingpang:
         r_inputs = pingpang_extend(r_inputs)
         r_targets = pingpang_extend(r_targets)
@@ -307,11 +327,11 @@ def tecogan_losses(gen, disc, params_g: Tensors, params_d: Tensors,
     metrics["l2_warp_loss"] = unroll.warp_loss
 
     real_in, fake_in = assemble_triplets(r_inputs, r_targets, gen_outputs,
-                                         unroll.gen_flow, cfg)
+                                         unroll.gen_flow, cfg, group)
     real_score, real_layers, _ = apply_discriminator(
-        disc, params_d, batch_stats_d, real_in, mutable=False)
+        disc, params_d, batch_stats_d, real_in, mutable=False, group=group)
     fake_score, fake_layers, _ = apply_discriminator(
-        disc, params_d, batch_stats_d, fake_in, mutable=False)
+        disc, params_d, batch_stats_d, fake_in, mutable=False, group=group)
 
     if cfg.D_LAYERLOSS:
         sum_layer_loss, layer_losses = d_layer_loss(real_layers, fake_layers, cfg)
@@ -391,14 +411,15 @@ def tecogan_losses(gen, disc, params_g: Tensors, params_d: Tensors,
 
 def discriminator_loss(disc, params_d: Tensors, batch_stats_d: Tensors,
                        real_in: torch.Tensor, fake_in: torch.Tensor,
-                       cfg: TecoConfig) -> Tuple[torch.Tensor, Tensors]:
+                       cfg: TecoConfig, group=None) -> Tuple[torch.Tensor, Tensors]:
     """The D objective: the log loss on real/fake triplets; the running
     BN statistics advance real, then fake, as the reference's call order
-    (train.py:181,199).  Returns (loss, new batch_stats)."""
+    (train.py:181,199).  Returns (loss, new batch_stats); ``group`` as in
+    :func:`tecogan_losses`."""
     real_score, _, stats1 = apply_discriminator(disc, params_d, batch_stats_d,
-                                                real_in, mutable=True)
+                                                real_in, mutable=True, group=group)
     fake_score, _, stats2 = apply_discriminator(disc, params_d, stats1,
-                                                fake_in, mutable=True)
+                                                fake_in, mutable=True, group=group)
     eps = cfg.EPS
     loss = torch.mean(-(torch.log(1.0 - fake_score + eps) + torch.log(real_score + eps)))
     return loss, stats2

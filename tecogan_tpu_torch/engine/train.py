@@ -7,9 +7,17 @@ pass); the D gradient re-runs only the discriminator on the detached
 triplet inputs with the pre-step D params.  The step is functional: it
 returns a new ``TrainState`` and leaves the one it was given as it was.
 
+With a data-parallel process ``group`` (parallel/dp.py) each rank runs
+the step on its share of the batch: D's BatchNorm statistics are the
+global batch's (``models.layers.BatchNorm``), the gradients of both
+objectives and every metric are averaged over the ranks (one all-reduce
+each) before Adam and before the D-balance gate, so every rank takes the
+same decision and holds the same state.  Since every loss is a mean over
+equal shares, that is the single-process step on the global batch.
+
 The phases run under ``torch.profiler.record_function`` spans
-(``gen_objective``, ``gen_backward``, ``disc_step``, ``adam``), which
-``tools/profile_train.py`` reads.
+(``gen_objective``, ``gen_backward``, ``disc_step``, ``adam``, and
+``all_reduce`` with a group), which ``tools/profile_train.py`` reads.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import TecoConfig
@@ -35,7 +44,22 @@ def _batch(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return transfer_dequantize_f32(x) if x.dtype == torch.uint8 else x
 
 
-def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
+def _rank_mean(tensors: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each tensor's mean over the group's ranks, by one all-reduce of
+    their float32 concatenation; the results keep each tensor's layout."""
+    keys = list(tensors)
+    flat = torch.cat([tensors[k].reshape(-1).float() for k in keys])
+    dist.all_reduce(flat, group=group)
+    flat /= group.size()
+    out, off = {}, 0
+    for k in keys:
+        t = tensors[k]
+        out[k] = torch.empty_like(t).copy_(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return out
+
+
+def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
     """Returns ``train_step(state, lr_batch, hr_batch) -> (state, metrics,
     gen_outputs)`` on ``device`` (default: the card, see
     ``engine.state.resolve_device``).
@@ -43,7 +67,11 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
     lr_batch: (B, T, 3, H, W), hr_batch: (B, T, 3, 4H, 4W), float32 in
     [0, 1] or uint8 (dequantized on the device).  ``metrics`` holds the
     JAX step's keys as 0-d float32 tensors on the device;
-    ``gen_outputs`` is (B, T', 3, 4H, 4W), detached."""
+    ``gen_outputs`` is (B, T', 3, 4H, 4W), detached.
+
+    ``group``: a data-parallel process group (see the module's
+    docstring); the batches are then this rank's share of equal size,
+    the metrics the global means and ``gen_outputs`` this rank's."""
     dev = resolve_device(device)
     gen, disc = train_model_defs(cfg, device=dev)
     opt_g, opt_d, sched = make_optimizers(cfg)
@@ -57,7 +85,7 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
         with record_function("gen_objective"):
             gen_loss, aux = tecogan_losses(
                 gen, disc, params_g, state.params_d, state.batch_stats_d,
-                lr_batch, hr_batch, state.step, cfg, vgg_apply)
+                lr_batch, hr_batch, state.step, cfg, vgg_apply, group)
         with record_function("gen_backward"):
             grads_g = dict(zip(params_g, torch.autograd.grad(
                 gen_loss, list(params_g.values()))))
@@ -66,11 +94,20 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
             params_d = _leaves(state.params_d)
             d_loss, new_stats = discriminator_loss(
                 disc, params_d, state.batch_stats_d, aux["real_in"],
-                aux["fake_in"], cfg)
+                aux["fake_in"], cfg, group)
             grads_d = dict(zip(params_d, torch.autograd.grad(
                 d_loss, list(params_d.values()))))
 
         metrics = {k: v.detach() for k, v in aux["metrics"].items()}
+        metrics["d_loss"] = d_loss.detach()
+        metrics["gen_loss"] = gen_loss.detach()
+        if group is not None:
+            with record_function("all_reduce"):
+                grads_g = _rank_mean(grads_g, group)
+                grads_d = _rank_mean(grads_d, group)
+                # Dst_ratio is the same on every rank: kept out of the mean
+                metrics.update(_rank_mean(
+                    {k: v for k, v in metrics.items() if k != "Dst_ratio"}, group))
         # D-balance gating, active with bug_parity off: skip the D update
         # while the balance EMA says D is winning (the reference threads
         # counter1/counter2 but gates nothing)
@@ -87,8 +124,6 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
 
         metrics["learning_rate"] = torch.full((), lr_now, dtype=torch.float32,
                                               device=dev)
-        metrics["d_loss"] = d_loss.detach()
-        metrics["gen_loss"] = gen_loss.detach()
         metrics["withD_counter"] = apply_d.float()
         metrics["w_o_D_counter"] = 1.0 - apply_d.float()
 
@@ -101,16 +136,16 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
     return train_step
 
 
-def build_multi_train_step(cfg: TecoConfig, vgg_apply=None, device=None):
+def build_multi_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
     """K = ``cfg.steps_per_dispatch`` train steps per call:
     ``multi_step(state, lr_k, hr_k) -> (state, metrics, last_gen_out)``
     with lr_k (K, B, T, 3, H, W) / hr_k (K, B, T, 3, 4H, 4W); every metric
     comes back stacked on a leading K axis (``metrics[...][k]`` is step
-    k)."""
+    k).  ``group`` as in :func:`build_train_step`."""
     k = int(cfg.steps_per_dispatch)
     if k <= 1:
         raise ValueError("build_multi_train_step requires steps_per_dispatch > 1")
-    step = build_train_step(cfg, vgg_apply, device)
+    step = build_train_step(cfg, vgg_apply, device, group)
 
     def multi_step(state: TrainState, lr_k: torch.Tensor, hr_k: torch.Tensor
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor], torch.Tensor]:

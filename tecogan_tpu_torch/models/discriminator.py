@@ -25,7 +25,7 @@ spatial size (48 at 128x128), as the flax module infers it from the input.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -54,8 +54,8 @@ class _DiscBlock(nn.Module):
         self.Conv_0 = Conv(in_ch, features, bias=False, kernel=4, stride=2)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x, stats: Dict[str, torch.Tensor], name: str):
-        return lrelu(self.BatchNorm_0(self.Conv_0(x), stats, f"{name}.BatchNorm_0"))
+    def forward(self, x, stats: Dict[str, torch.Tensor], name: str, group=None):
+        return lrelu(self.BatchNorm_0(self.Conv_0(x), stats, f"{name}.BatchNorm_0", group))
 
 
 class _ResidBNGroup(nn.Module):
@@ -68,10 +68,10 @@ class _ResidBNGroup(nn.Module):
             self.add_module(f"rb_{i}", ResidualBlock(features, features))
             self.add_module(f"bn_{i}", BatchNorm(features))
 
-    def forward(self, x, stats: Dict[str, torch.Tensor], name: str):
+    def forward(self, x, stats: Dict[str, torch.Tensor], name: str, group=None):
         for i in range(self.count):
             y = getattr(self, f"rb_{i}")(x)
-            x = getattr(self, f"bn_{i}")(y, stats, f"{name}.bn_{i}") + x
+            x = getattr(self, f"bn_{i}")(y, stats, f"{name}.bn_{i}", group) + x
         return x
 
 
@@ -96,26 +96,28 @@ class Discriminator(nn.Module):
             side = _down(side)
         self.fc = Dense(3 * side * side, 1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[
+    def forward(self, x: torch.Tensor, group: Optional[object] = None) -> Tuple[
             torch.Tensor, List[torch.Tensor], Dict[str, torch.Tensor]]:
         """x: (B, H, W, in_channels) -> (score (B, 1) float32 in (0, 1),
         the 4 feature maps (NHWC, compute dtype), the batch statistics of
-        every BN layer by name, detached)."""
+        every BN layer by name, detached).  ``group``: the data-parallel
+        process group whose global batch the BN statistics are taken over
+        (``layers.BatchNorm``), None for this process's batch."""
         stats: Dict[str, torch.Tensor] = {}
         layers = []
         net = lrelu(self.conv_in(_nchw(x.to(self.dtype))))
-        net = self.block1(net, stats, "block1")
-        net = self.resids1(net, stats, "resids1")
+        net = self.block1(net, stats, "block1", group)
+        net = self.resids1(net, stats, "resids1", group)
         layers.append(_nhwc(net))
-        net = self.block2(net, stats, "block2")
-        net = self.resids2(net, stats, "resids2")
+        net = self.block2(net, stats, "block2", group)
+        net = self.resids2(net, stats, "resids2", group)
         layers.append(_nhwc(net))
-        net = self.block3(net, stats, "block3")
-        net = self.resids3(net, stats, "resids3")
+        net = self.block3(net, stats, "block3", group)
+        net = self.resids3(net, stats, "resids3", group)
         layers.append(_nhwc(net))
-        net = self.block4(net, stats, "block4")
+        net = self.block4(net, stats, "block4", group)
         layers.append(_nhwc(net))
-        net = self.block5(net, stats, "block5")
+        net = self.block5(net, stats, "block5", group)
         # flatten in NCHW order, as the reference's view on NCHW;
         # reshape is in logical order whatever the memory format
         net = net.reshape(net.shape[0], -1)

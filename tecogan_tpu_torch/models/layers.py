@@ -15,7 +15,7 @@ after the conv in the output dtype, as the JAX layers add it.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -81,7 +81,14 @@ class BatchNorm(nn.Module):
     (detached) mean and variance into ``stats`` under ``name + '.mean'`` /
     ``'.var'``; the caller folds them into its running averages
     (``0.9 * old + 0.1 * batch``, engine/losses.py) or leaves them, as the
-    generator objective does."""
+    generator objective does.
+
+    With a process ``group`` (data-parallel training, parallel/dp.py) the
+    batch is the global one: each rank's f32 mean and ``E[x^2]`` are summed
+    over the ranks by a differentiable all-reduce and divided by the world
+    size before the variance, as the JAX package's SPMD step computes
+    them; every rank then records the same statistics.  The ranks' batches
+    must be of equal size.  Without a group nothing else runs."""
 
     EPS = 1e-3
 
@@ -91,10 +98,18 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, stats: Dict[str, torch.Tensor],
-                name: str) -> torch.Tensor:
+                name: str, group: Optional[object] = None) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if group is None:
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        else:
+            from ..parallel.collectives import all_reduce_sum
+
+            moments = all_reduce_sum(torch.cat([mean, (xf * xf).mean(dim=(0, 2, 3))]),
+                                     group) / group.size()
+            mean, sq = moments.chunk(2)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
         mul = torch.rsqrt(var + self.EPS) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         stats[f"{name}.mean"] = mean.detach()

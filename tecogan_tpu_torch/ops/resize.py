@@ -1,8 +1,9 @@
 """Resizes (tecogan_tpu/ops/resize.py, and the two ``jax.image.resize``
 modes the adaptation slice calls).
 
-* :func:`upscale_four`: 4x bilinear, half-pixel source centers, edge
-  clamp (``align_corners=False``), the recurrence's pseudo-flow.
+* :func:`upscale_four` / :func:`upscale_two`: 4x / 2x bilinear,
+  half-pixel source centers, edge clamp (``align_corners=False``), the
+  recurrence's pseudo-flow and FNet's up blocks.
 * :func:`resize_bilinear_aa` and :func:`resize_bicubic`:
   ``jax.image.resize(x, shape, "bilinear", antialias=True)`` and
   ``jax.image.resize(x, shape, "bicubic")``.  Each resized axis is one
@@ -29,6 +30,13 @@ from .precision import full_f32
 def upscale_four(x: torch.Tensor) -> torch.Tensor:
     """NCHW ``(B, C, H, W) -> (B, C, 4H, 4W)``."""
     return F.interpolate(x, scale_factor=4, mode="bilinear",
+                         align_corners=False)
+
+
+def upscale_two(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear as :func:`upscale_four` (FNet's up blocks, reference
+    code/models.py:17): NCHW ``(B, C, H, W) -> (B, C, 2H, 2W)``."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
 
 

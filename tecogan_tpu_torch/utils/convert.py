@@ -5,7 +5,8 @@ The port's submodules carry the flax names (generator: ``conv_in``,
 ``resblock_{i}.Conv_0`` / ``Conv_1``, ``up1``, ``trunk_rb1``,
 ``trunk_rb2``, ``up2``, ``conv_hr``, ``conv_out``; discriminator:
 ``conv_in``, ``block{k}.Conv_0`` / ``BatchNorm_0``, ``resids{k}.rb_{i}`` /
-``bn_{i}``, ``fc``; VGG-19: ``conv{i}_{j}``), so the bridge is a pure
+``bn_{i}``, ``fc``; VGG-19: ``conv{i}_{j}``; FNet: ``_DownBlock_{i}`` /
+``_UpBlock_{i}.Conv_{j}``, ``Conv_{j}``), so the bridge is a pure
 layout map: a flax path ``a/b/leaf`` is the key ``a.b.leaf``, with ``kernel`` renamed ``weight``:
 
 * ``Conv`` kernels are HWIO in flax and OIHW in torch.
@@ -102,6 +103,17 @@ def generator_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.
 def generator_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """``models.Generator``'s params -> the flax tree."""
     return state_dict_to_jax(sd, GENERATOR_TRANSPOSED)
+
+
+def fnet_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax FNet params (``_DownBlock_{i}/Conv_{j}``, ...) -> float32
+    ``state_dict`` for ``models.fnet.FNet``."""
+    return state_dict_from_jax(params)
+
+
+def fnet_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``models.fnet.FNet``'s params -> the flax tree."""
+    return state_dict_to_jax(sd)
 
 
 def vgg_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -31,6 +31,21 @@ def generator_macs_per_frame(
     return macs
 
 
+def generator_flops_per_frame(h: int, w: int, num_resblock: int = 16) -> float:
+    """FLOPs (2 x MACs) of one frame of recurrent inference at LR (h, w)."""
+    return 2.0 * generator_macs_per_frame(h, w, num_resblock)
+
+
+def inference_mfu(fps: float, h: int, w: int, num_resblock: int = 16,
+                  peak_flops: float = H100_PEAK_BF16_FLOPS) -> dict:
+    """Model-FLOPs utilization of recurrent inference at ``fps`` frames a
+    second against the bf16 dense peak."""
+    fpf = generator_flops_per_frame(h, w, num_resblock)
+    achieved = fps * fpf
+    return {"gen_tflop_per_frame": fpf / 1e12, "achieved_tflops": achieved / 1e12,
+            "mfu": achieved / peak_flops}
+
+
 def int8_tail_macs_per_frame(h: int, w: int, num_resblock: int = 16) -> int:
     """MACs of the quantized tail (the int8 convs, engine/quant.py) for one
     frame at LR resolution (h, w): the generator without ``conv_in`` and

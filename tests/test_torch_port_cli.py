@@ -9,7 +9,10 @@ tests/test_torch_port_inference.py holds those routes to, on its weight
 gain and clip range); the chunked u8, int8, video-mode and live routes
 bit-equal to the port's engine routes; a resumed epoch's checkpoint pair
 bit-equal to a hand loop of ``build_train_step`` over the dataset's
-batches; ``score_pair`` within ``SCORE_TOL`` of JAX's.
+batches; ``score_pair`` within ``SCORE_TOL`` of JAX's.  The multi-rank
+routes on 2 gloo CPU ranks write the single-process run's frames (bit for
+bit but the exact route, one uint8 level) and .ckpt leaves (1e-5 but for
+at most 1e-3 of a leaf, held to two Adam steps' range).
 """
 
 import contextlib
@@ -279,16 +282,105 @@ def test_video_mode_is_the_engine_clip(ws, tmp_path, monkeypatch):
     assert image.read_gif(got[0][1]).shape == (5, 32, 32, 3)
 
 
-def test_more_cards_than_one_are_not_ported(monkeypatch):
-    """With several cards visible an explicit --spatial_shards or
-    --data_axis above 1 raises; --data_axis 0 runs on one with a warning."""
+def test_several_cards_take_the_multi_rank_routes(ws, tmp_path, monkeypatch):
+    """With two cards visible the multi-rank routes are taken, not refused:
+    --spatial_shards 2, then two same-shape clips (data-parallel serving,
+    --data_axis 0 is every card), then --data_axis 2 and 0 for training;
+    each launches 2 ranks on the cards.  A batch the cards do not divide
+    trains on one, with the JAX package's warning."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    dev = torch.device("cuda", 0)
-    for flags in ({"spatial_shards": 2}, {"data_axis": 2}):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            cli._one_device(TecoConfig(**flags), dev)
-    with pytest.warns(UserWarning, match="2 GPUs visible"):
-        cli._one_device(TecoConfig(), dev)
+    launched = []
+    monkeypatch.setattr(cli, "_launch", lambda fn, world, dev, args: launched.append(
+        (fn.__name__, world, dev.type, args[-1] if fn is cli._inference_rank else None)))
+    for extra in (["--spatial_shards", "2"], []):
+        cli.run_inference(parse_config(_infer_argv(ws, tmp_path, *extra)), device="cuda")
+    for axis in ("2", "0"):
+        cli.run_train(parse_config(_train_argv(ws, tmp_path / "t", "--data_axis", axis)),
+                      device="cuda")
+    assert launched == [("_inference_rank", 2, "cuda", "spatial"),
+                        ("_inference_rank", 2, "cuda", "dp"),
+                        ("_train_rank", 2, "cuda", None), ("_train_rank", 2, "cuda", None)]
+    monkeypatch.setattr(cli, "_train", lambda cfg, dev, mesh=None: launched.append("one"))
+    with pytest.warns(UserWarning, match="batch_size=3 is not divisible by 2 devices"):
+        cli.run_train(parse_config(_train_argv(ws, tmp_path / "t", "--batch_size", "3")),
+                      device="cuda")
+    assert launched[-1] == "one"
+
+
+def _png_clips(out, n=2):
+    """The frames of the ``output{i}.png`` clips (lossless, every frame)."""
+    from PIL import Image, ImageSequence
+
+    clips = []
+    for i in range(n):
+        with Image.open(os.path.join(out, f"output{i}.png")) as im:
+            clips.append(np.stack([np.array(f.convert("RGB"))
+                                   for f in ImageSequence.Iterator(im)]))
+    return clips
+
+
+@pytest.mark.parametrize("route", ["exact", "fused", "int8"])
+def test_spatial_shards_write_the_single_process_frames(ws, tmp_path, capfd, route):
+    """--spatial_shards 2 over 2 CPU ranks (each 8-row clip split in two)
+    writes the frames the single-process run writes: bit for bit on the
+    fused route and its int8 tail (each clip's qtail calibrated from the
+    params it serves); on the exact route (bug_parity, fp32) within one
+    uint8 level (its frames agree to 2e-6, tests/test_torch_port_spatial.py,
+    and the uint8 conversion truncates)."""
+    extra = {"exact": [], "fused": ["--bug_parity", "False"],
+             "int8": ["--bug_parity", "False", "--quantize", "int8"]}[route]
+    argv = _infer_argv(ws, tmp_path, "--videotype", ".png", *extra)
+    cli.run_inference(parse_config(argv), device="cpu")
+    want = _png_clips(tmp_path / "out")
+    capfd.readouterr()
+    cli.run_inference(parse_config(argv + ["--spatial_shards", "2", "--output_dir",
+                                           str(tmp_path / "sp")]), device="cpu", ranks=2)
+    for got, ref in zip(_png_clips(tmp_path / "sp"), want):
+        assert got.shape == ref.shape == (6, 32, 32, 3)
+        if route == "exact":
+            assert np.abs(got.astype(int) - ref).max() <= 1
+        else:
+            np.testing.assert_array_equal(got, ref)
+    text = capfd.readouterr().out
+    tail = " + int8 tail" if route == "int8" else ""
+    assert text.count(f"spatial: 2-way row sharding{tail}\n") == 2, text
+
+
+def test_data_parallel_serving_writes_the_single_process_frames(ws, tmp_path, capfd):
+    """Two same-shape clips on 2 CPU ranks (--data_axis 0: every rank), one
+    a rank: the single-process run's frames, bit for bit."""
+    argv = _infer_argv(ws, tmp_path, "--videotype", ".png", "--bug_parity", "False")
+    cli.run_inference(parse_config(argv), device="cpu")
+    want = _png_clips(tmp_path / "out")
+    capfd.readouterr()
+    cli.run_inference(parse_config(argv + ["--output_dir", str(tmp_path / "dp")]),
+                      device="cpu", ranks=2)
+    for got, ref in zip(_png_clips(tmp_path / "dp"), want):
+        np.testing.assert_array_equal(got, ref)
+    assert "data-parallel inference over 2 devices" in capfd.readouterr().out
+
+
+def test_data_axis_trains_the_single_process_leaves(ws, tmp_path):
+    """--data_axis 2 on 2 CPU ranks (one sample of the batch of 2 a rank),
+    an epoch of 2 steps: the .ckpt pair holds the single-process run's
+    leaves, within 1e-5 but for at most 1e-3 of a leaf's elements held to
+    the steps' range (the Adam eps regime, tests/test_torch_port_dp.py)."""
+    one, two = tmp_path / "one", tmp_path / "two"
+    cli.run_train(parse_config(_train_argv(ws, one)), device="cpu")
+    cli.run_train(parse_config(_train_argv(ws, two, "--data_axis", "2")), device="cpu",
+                  ranks=2)
+    got, want = _ckpt_files(two), _ckpt_files(one)
+    lr = parse_config(TINY).learning_rate
+    for name in want:
+        (gd, gm), (wd, wm) = got[name], want[name]
+        assert gd.keys() == wd.keys() and gm.keys() == wm.keys()
+        assert all(np.array_equal(gm[key], wm[key]) for key in wm)
+        for key in wd:
+            diff = np.abs(gd[key].astype(np.float64) - wd[key])
+            assert diff.max() <= 4.0001 * lr, (name, key)
+            assert (diff > 1e-5).sum() <= max(2, 1e-3 * diff.size), (name, key)
+    for f in ("gan.gif", "real.gif", "original.gif"):
+        assert (two / f).exists()
 
 
 def _train_argv(ws, out, *extra):

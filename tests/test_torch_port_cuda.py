@@ -674,3 +674,56 @@ def test_metrics_on_the_card_match_the_cpu(cuda):
         got = vgg_model(params, device=cuda)(x[:, :64, :64].to(cuda) * 255.0 - 120.0)[1]
     for k, v in want.items():
         assert float((got[k].cpu() - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+
+
+def _halo_block(x, r, n, up, down):
+    """Rank r of n's rows of x (B, H, ...) extended by ``up`` rows above and
+    ``down`` below from the neighbours' rows, zeros beyond the image: what
+    ``parallel.collectives.halo_rows`` hands the rank."""
+    R = x.shape[1] // n
+    lo, hi = r * R - up, (r + 1) * R + down
+    block = x[:, max(lo, 0):min(hi, x.shape[1])]
+    pad = [torch.zeros_like(x[:, :1]).expand(-1, k, *x.shape[2:]) for k in
+           (max(0, -lo), max(0, hi - x.shape[1]))]
+    return torch.cat([pad[0], block, pad[1]], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2])
+def test_kernels_on_halo_blocks_are_the_full_frames_rows(cuda, rank):
+    """The spatial route's launches (parallel/spatial.py) at rank 0, 1 and 2
+    of 3: ``conv_out_s2d`` on 4R + 8 feature rows (4 halo rows each side),
+    ``int8_conv3x3`` on R + 2 rows with its fused residual extended by
+    zero rows, ``int8_up2x`` on R + 1 rows; each cropped block bit-equal
+    to the same rows of the kernel's full-frame output, and against its
+    plain version on the block within the kernel bars."""
+    n, H = 3, 18
+    R = H // n
+    feat, k, b = _inputs(cuda, (1, 4 * H, 64, 64), seed=rank)
+    full = kmod.conv_out_s2d_cuda(feat, k, b)
+    blk = _halo_block(feat, rank, n, 4, 4)
+    got = kmod.conv_out_s2d_cuda(blk, k, b)[:, 1:R + 1]
+    assert torch.equal(got, full[:, rank * R:(rank + 1) * R])
+    want = kmod.conv_out_s2d_reference(blk.float(), k.bfloat16().float(), b)[:, 1:R + 1]
+    err = (got.float() - want).abs()
+    assert float(err.max()) <= MAX_ERR and float(err.mean()) <= MEAN_ERR
+
+    for up in (False, True):
+        x, inv_s, wq, deq, bias, res = layer_inputs(cuda, up, (1, H, 24, 64, 64), rank,
+                                                    torch.bfloat16)
+        if up:
+            full = qmod.int8_up2x_cuda(x, inv_s, wq, deq, bias, True)
+            xb = _halo_block(x, rank, n, 0, 1)
+            got = qmod.int8_up2x_cuda(xb, inv_s, wq, deq, bias, True)[:, :2 * R]
+            want = qmod.int8_up2x_reference(xb, inv_s, wq, deq, bias, True)[:, :2 * R]
+            rows = slice(2 * rank * R, 2 * (rank + 1) * R)
+        else:
+            full = qmod.int8_conv3x3_cuda(x, inv_s, wq, deq, bias, False, res)
+            xb = _halo_block(x, rank, n, 1, 1)
+            rb = torch.nn.functional.pad(res[:, rank * R:(rank + 1) * R],
+                                         (0, 0, 0, 0, 1, 1)).contiguous()
+            got = qmod.int8_conv3x3_cuda(xb, inv_s, wq, deq, bias, False, rb)[:, 1:R + 1]
+            want = qmod.int8_conv3x3_reference(xb, inv_s, wq, deq, bias, False, rb)[:, 1:R + 1]
+            rows = slice(rank * R, (rank + 1) * R)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:, rows]), up
+        assert torch.equal(got, want), up

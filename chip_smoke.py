@@ -1220,68 +1220,59 @@ def _reset_counts():
     qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
 
 
-class _Recorder:
-    """Keeps the arguments of the last launch of each hand kernel on the
-    rank's path (int8_conv3x3 with and without its residual), through the
-    names engine/fused.py and engine/quant.py call; the launches still run
-    and count."""
+def _recorder():
+    """A ``TorchDispatchMode`` (built on first use) that keeps the last
+    launch of each hand kernel's custom op (``tecogan_tpu_torch::*``;
+    ``int8_conv3x3`` with and without its residual apart): its inputs and
+    its output.  The launches run and count as without it; ``check()``
+    holds each kept output against its plain version on the same inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
-    def __init__(self):
-        from tecogan_tpu_torch.engine import fused, quant
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
+    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
 
-        self.last, self.saved = {}, []
-        for mod, name in ((fused, "conv_out_s2d_cuda"), (fused, "warp_s2d_feedback_cuda"),
-                          (quant, "int8_conv3x3_cuda"), (quant, "int8_up2x_cuda")):
-            real = getattr(mod, name)
-            self.saved.append((mod, name, real))
-            setattr(mod, name, self._wrap(name, real))
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.last = {}
 
-    def _wrap(self, name, real):
-        def call(*args):
-            key = name
-            if name == "int8_conv3x3_cuda":
-                key += "+res" if len(args) > 6 and args[6] is not None else ""
-            self.last[key] = args
-            return real(*args)
-        return call
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "tecogan_tpu_torch":
+                key = func._opname
+                if key == "int8_conv3x3" and args[6] is not None:
+                    key += "+res"
+                self.last[key] = (args, out)
+            return out
 
-    def restore(self):
-        for mod, name, real in self.saved:
-            setattr(mod, name, real)
+        def check(self) -> dict:
+            """The kernel agreement bars (conv_out_s2d, warp_s2d) or
+            bit-equality (int8) for each kept launch."""
+            res = {}
+            for key, (args, got) in self.last.items():
+                bars = None
+                if key == "conv_out_s2d":
+                    feat, k, b = args  # the kernel rounds its weights to bf16
+                    want = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
+                    bars = (MAX_ERR, MEAN_ERR)
+                elif key == "warp_s2d_feedback":
+                    want = wmod.warp_s2d_feedback_reference(*args)
+                    bars = (WARP_MAX_ERR, WARP_MEAN_ERR)
+                else:
+                    plain = (qmod.int8_up2x_reference if key == "int8_up2x"
+                             else qmod.int8_conv3x3_reference)
+                    want = plain(*args)
+                err = (got.float() - want.float()).abs()
+                rec = {"rows": args[0].shape[1], "max": float(err.max()),
+                       "mean": float(err.mean())}
+                rec["ok"] = (bool(torch.equal(got, want)) if bars is None
+                             else rec["max"] <= bars[0] and rec["mean"] <= bars[1])
+                res[key] = rec
+            torch.cuda.synchronize()
+            return res
 
-    def check(self) -> dict:
-        """Each recorded launch again against its plain version: the kernel
-        agreement bars (conv_out_s2d, warp_s2d) or bit-equality (int8)."""
-        from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
-        from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
-        from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
-
-        out = {}
-        for key, args in self.last.items():
-            if key == "conv_out_s2d_cuda":
-                feat, k, b = args
-                got = kmod.conv_out_s2d_cuda(feat, k, b).float()
-                want = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
-                err = (got - want).abs()
-                out[key] = {"rows": feat.shape[1], "max": float(err.max()),
-                            "mean": float(err.mean()),
-                            "ok": float(err.max()) <= MAX_ERR and float(err.mean()) <= MEAN_ERR}
-            elif key == "warp_s2d_feedback_cuda":
-                got = wmod.warp_s2d_feedback_cuda(*args).float()
-                err = (got - wmod.warp_s2d_feedback_reference(*args)).abs()
-                out[key] = {"rows": args[0].shape[1], "max": float(err.max()),
-                            "mean": float(err.mean()), "ok": float(err.max()) <= WARP_MAX_ERR
-                            and float(err.mean()) <= WARP_MEAN_ERR}
-            else:
-                up = key.startswith("int8_up2x")
-                kernel = qmod.int8_up2x_cuda if up else qmod.int8_conv3x3_cuda
-                plain = qmod.int8_up2x_reference if up else qmod.int8_conv3x3_reference
-                got, want = kernel(*args), plain(*args)
-                out[key] = {"rows": args[0].shape[1],
-                            "max": float((got.float() - want.float()).abs().max()),
-                            "ok": bool(torch.equal(got, want))}
-        torch.cuda.synchronize()
-        return out
+    return Recorder()
 
 
 class _GatherClock:
@@ -1358,12 +1349,11 @@ def _spatial_check(dev, mesh, main: bool, exact: bool) -> dict:
     prepare, infer_q = build_quantized_clip_inference(cfg)
     qtail = calibrate_on_rank0(mesh, prepare, model, params, clip, 8)
     infer_sq = build_spatial_fused_clip_inference(cfg, mesh, quantize=True)
-    recorder = _Recorder()
     _reset_counts()
-    sq = infer_sq(model, qtail, clip)
-    torch.cuda.synchronize()
+    with _recorder() as recorder:
+        sq = infer_sq(model, qtail, clip)
+        torch.cuda.synchronize()
     res["int8_counts"] = _kernel_counts()
-    recorder.restore()
     res["kernels"] = recorder.check()
     if main:
         res["bf16"] = _frames_apart(sr, build_clip_inference(cfg)(model, clip))
@@ -1732,6 +1722,362 @@ def cli_multi_phase(dev, smi) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: exported serving windows, the converter, adapt_clip, the surrogate
+# ---------------------------------------------------------------------------
+
+EXPORT_T, EXPORT_CHUNK = 40, 16      # head + 2 cont windows, the last padded
+EXPORT_RESBLOCKS = 16
+ADAPT_T, ADAPT_H, ADAPT_STEPS = 12, 268, 4
+CLI16_STEPS = 3
+# tools/run_convergence_r5.sh's trainer flags (the data, epochs and the
+# supervisor's memory limit aside)
+R5_FLAGS = ["--batch_size", "4", "--crop_size", "32", "--RNN_N", "10",
+            "--num_resblock", "16", "--discrim_resblocks", "4", "--discrim_channels", "128",
+            "--precision", "bf16", "--bug_parity", "False", "--pingpang", "True",
+            "--vgg_scaling", "0.2", "--vgg_ckpt", "surrogate", "--checkpoint_every", "2",
+            "--validate_every", "4", "--auto_resume", "True", "--queue_thread", "6",
+            "--log_every", "50", "--transfer_dtype", "u8"]
+
+
+def serve_child(spec_path: str) -> None:
+    """``python3 chip_smoke.py --serve-exported SPEC``: phase 16's serving
+    host, a fresh interpreter importing ``tools/serve_exported.py`` (and so
+    ``ops.kernels``) and nothing of ``models`` or ``engine``.  For each run
+    of the spec: a warm-up, a timed run with the launch counts set to 0
+    just before and read just after, then a run that keeps each op's last
+    launch, held against the op's plain version; the SR clip and a JSON
+    record go where the spec says."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from tecogan_tpu_torch.tools.serve_exported import load_server
+
+    results = []
+    for run in spec["runs"]:
+        params = torch.load(run["params"], weights_only=True)
+        clip = np.load(run["clip"])
+        t0 = time.perf_counter()
+        serve = load_server(run["dir"], params, spec["device"], run["quantized"])
+        load_s = time.perf_counter() - t0
+        serve(clip)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        sr = serve(clip)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = _kernel_counts()
+        with _recorder() as rec:
+            again = serve(clip)
+            torch.cuda.synchronize()
+        last = rec.check()
+        torch.save(sr, run["out"])
+        results.append({"name": run["name"], "load_s": load_s, "secs": secs,
+                        "frames": int(clip.shape[1]), "launches": launched, "last": last,
+                        "repeat_equal": bool(torch.equal(sr, again))})
+    with open(spec["result"], "w") as f:
+        json.dump({"runs": results, "modules": sorted(
+            m for m in sys.modules if m.startswith("tecogan_tpu_torch"))}, f)
+
+
+def export_phase(dev, smi) -> dict:
+    """Phase 16: (a) the bf16 window programs exported at f32 and u8 wire,
+    served from a process with no model code, against the live chunked
+    loop; (b) the int8 programs the same way; (c) a reference-layout
+    ``generator.pt`` through the converter both ways; (d)
+    ``tools/adapt_clip.py``; (e) CLI train steps with the surrogate VGG.
+    Returns each kernel's launches on the served paths."""
+    import subprocess
+    import tempfile
+
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
+                                                    build_clip_inference,
+                                                    build_quantized_clip_inference,
+                                                    window_params)
+    from tecogan_tpu_torch.engine.state import init_generator, model_defs
+    from tecogan_tpu_torch.tools import export_infer
+    from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
+
+    cfg = TecoConfig(num_resblock=EXPORT_RESBLOCKS, precision="bf16", bug_parity=False,
+                     use_pallas=True, warp_group=4)
+    params = init_generator(cfg, torch.Generator().manual_seed(0))
+    model = model_defs(cfg, device=dev)
+    model.load_state_dict(generator_state_dict_from_jax(params))
+    model.eval()
+    rng = np.random.default_rng(16)
+    H, W = CLIP[2], CLIP[3]
+    clip_f32 = rng.random((1, EXPORT_T, H, W, 3), np.float32)
+    clip_u8 = rng.integers(0, 256, (1, EXPORT_T, H, W, 3), dtype=np.uint8)
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    served = {}
+    try:
+        # -- 16a/b. export: f32 wire (with --check), then u8 wire with int8
+        common = ["--height", str(H), "--width", str(W), "--chunk", str(EXPORT_CHUNK),
+                  "--num_resblock", str(EXPORT_RESBLOCKS), "--precision", "bf16",
+                  "--device", str(dev)]
+        calib_dir = os.path.join(tmp, "calib")
+        os.makedirs(calib_dir)
+        import cv2
+
+        for t in range(8):  # the u8 clip's first 8 frames, as the tool reads them
+            cv2.imwrite(os.path.join(calib_dir, f"{t:04d}.png"), clip_u8[0, t, ..., ::-1])
+        dirs = {"f32": os.path.join(tmp, "f32"), "u8": os.path.join(tmp, "u8")}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            man_f32 = export_infer.main(common + ["--out", dirs["f32"], "--check"])
+            check_s = time.perf_counter() - t0
+            man_u8 = export_infer.main(common + ["--out", dirs["u8"], "--wire", "u8",
+                                                 "--quantize", "int8", "--calib_dir", calib_dir])
+        text = buf.getvalue()
+        require(text.count("check ok: head+cont bit-equal vs live") == 1,
+                f"[16a] export --check:\n{text[-2000:]}")
+        sizes = {f"{w}/{n}": os.path.getsize(os.path.join(d, n)) // 2**10
+                 for w, d in dirs.items() for n in sorted(os.listdir(d)) if n.endswith(".pt2")}
+        print(f"[16a] export_infer at chunk {EXPORT_CHUNK}, {H}x{W}, {EXPORT_RESBLOCKS} "
+              f"resblocks, bf16: "
+              f"torch.export seconds f32 wire {man_f32['export_seconds']}, u8 wire + int8 "
+              f"{man_u8['export_seconds']}; f32 export with --check {check_s:.2f} s in all | "
+              f"KiB {sizes} | platforms {man_f32['platforms']} | {smi}", flush=True)
+        require(man_f32["platforms"] == [dev.type], f"[16a] platforms {man_f32['platforms']}")
+
+        # the live chunked loop, timed; its qtail from the tool's own calibration clip
+        prepare, _ = build_quantized_clip_inference(cfg)
+        calib = torch.from_numpy(export_infer._calibration_clip(calib_dir, 1, H, W))
+        qtail = prepare(model, params, calib, frames=8)
+        with np.load(os.path.join(dirs["u8"], "qtail.npz")) as z:
+            for layer, q in qtail.items():
+                for field, v in q.items():
+                    key = f"['{layer}']['{field}']"
+                    require((v is None and key not in z.files) or
+                            (v is not None and np.array_equal(z[key], v.cpu().numpy())),
+                            f"[16b] qtail.npz {key} differs from prepare's")
+        live = {}
+        for name, clip, out_u8, qt in (("f32", clip_f32, False, None),
+                                       ("u8", clip_u8, True, None),
+                                       ("int8", clip_u8, True, qtail)):
+            chunked = build_chunked_inference(cfg, out_u8=out_u8)
+            chunked(model, clip, chunk=EXPORT_CHUNK, qtail=qt)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            live[name] = (chunked(model, clip, chunk=EXPORT_CHUNK, qtail=qt),
+                          time.perf_counter() - t0)
+
+        # the serving host: a fresh interpreter with no model code
+        p = {k: v.cpu() for k, v in window_params(model).items()}
+        torch.save(p, os.path.join(tmp, "params.pt"))
+        np.save(os.path.join(tmp, "clip_f32.npy"), clip_f32)
+        np.save(os.path.join(tmp, "clip_u8.npy"), clip_u8)
+        runs = [{"name": n, "dir": dirs[d], "clip": os.path.join(tmp, f"clip_{c}.npy"),
+                 "quantized": q, "params": os.path.join(tmp, "params.pt"),
+                 "out": os.path.join(tmp, f"sr_{n}.pt")}
+                for n, d, c, q in (("f32", "f32", "f32", False), ("u8", "u8", "u8", False),
+                                   ("int8", "u8", "u8", True))]
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"runs": runs, "result": os.path.join(tmp, "result.json"),
+                       "device": str(dev)}, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-exported",
+                               spec], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"[16] serving process exited {proc.returncode}:\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(tmp, "result.json")) as f:
+            result = json.load(f)
+        mods = result["modules"]
+        require(not any(".models" in m or ".engine" in m for m in mods),
+                f"[16] the serving process imported {mods}")
+        padded = -(-EXPORT_T // EXPORT_CHUNK) * EXPORT_CHUNK  # frames the programs run
+        for rec in result["runs"]:
+            name = rec["name"]
+            got = torch.load(os.path.join(tmp, f"sr_{name}.pt"))
+            want, live_s = live[name]
+            tag = "16b" if name == "int8" else "16a"
+            require(tuple(got.shape) == (1, EXPORT_T, 4 * H, 4 * W, 3),
+                    f"[{tag}] {name}: served {tuple(got.shape)}")
+            require(torch.equal(got, want), f"[{tag}] {name}: served windows differ from the "
+                    f"live chunked loop (max {float((got.float() - want.float()).abs().max())})")
+            require(rec["repeat_equal"], f"[{tag}] {name}: a second run differs")
+            c = rec["launches"]
+            want_c = {"conv_out_s2d": padded, "warp_s2d": padded - 1,
+                      "int8_conv3x3": 37 * padded if name == "int8" else 0,
+                      "int8_up2x": 2 * padded if name == "int8" else 0}
+            require(c == want_c, f"[{tag}] {name}: launches {c}, want {want_c}")
+            bad = {op: v for op, v in rec["last"].items() if not v["ok"]}
+            require(len(rec["last"]) == (5 if name == "int8" else 2) and not bad,
+                    f"[{tag}] {name}: last launches vs plain {rec['last']}")
+            served[name] = c
+            print(f"[{tag}] served {name} ({'u8' if name != 'f32' else 'f32'} wire"
+                  f"{', int8 tail' if name == 'int8' else ''}) from a process importing "
+                  f"{len(mods)} tecogan_tpu_torch modules, none of models/engine: "
+                  f"{EXPORT_T} frames bit-equal to the live chunked loop | launches {c} "
+                  f"({EXPORT_T} frames served + {padded - EXPORT_T} padding) | last launches "
+                  f"vs plain {rec['last']} | served {EXPORT_T / rec['secs']:.3f} fps "
+                  f"({rec['secs'] * 1e3:.3f} ms, {rec['secs'] * 1e3 / padded:.3f} ms a frame "
+                  f"run), live chunked {EXPORT_T / live_s:.3f} fps ({live_s * 1e3:.3f} ms, "
+                  f"{live_s * 1e3 / EXPORT_T:.3f} ms a frame run), programs loaded in "
+                  f"{rec['load_s']:.2f} s | {smi}", flush=True)
+        print(f"[16] serving process: {child_s:.1f} s in all", flush=True)
+        del live, qtail
+
+        # -- 16c. the converter: .ckpt -> reference .pt -> .ckpt, served
+        from tecogan_tpu_torch.tools import convert_torch_ckpt
+        from tecogan_tpu_torch.utils.checkpoint import (load_generator_params,
+                                                        save_generator_params)
+
+        ckpt = os.path.join(tmp, "g.ckpt")
+        save_generator_params(ckpt, params)
+        with contextlib.redirect_stdout(io.StringIO()):
+            nres = ["--num_resblock", str(EXPORT_RESBLOCKS)]
+            convert_torch_ckpt.main(["--reverse", ckpt, "--arch", "generator",
+                                     "--out", os.path.join(tmp, "generator.pt"), *nres])
+            convert_torch_ckpt.main(["--torch", os.path.join(tmp, "generator.pt"),
+                                     "--arch", "generator", "--out", os.path.join(tmp, "g2.ckpt"),
+                                     *nres])
+        ref_sd = torch.load(os.path.join(tmp, "generator.pt"), weights_only=False)
+        require(sorted(ref_sd) == ["epoch", "model_state_dict"] and
+                "conv_trans.4.weight" in ref_sd["model_state_dict"] and
+                f"resids.{EXPORT_RESBLOCKS - 1}.2.weight" in ref_sd["model_state_dict"],
+                f"[16c] reference keys {sorted(ref_sd['model_state_dict'])[:5]}")
+        back = model_defs(cfg, device=dev)
+        back.load_state_dict(generator_state_dict_from_jax(
+            load_generator_params(os.path.join(tmp, "g2.ckpt"))))
+        clip8 = torch.from_numpy(clip_f32[:, :CLIP[1]]).to(dev)
+        infer = build_clip_inference(cfg)
+        want = infer(model, clip8)
+        _reset_counts()
+        got = infer(back.eval(), clip8)
+        torch.cuda.synchronize()
+        c = _kernel_counts()
+        require(torch.equal(got, want), "[16c] the converted checkpoint serves other frames")
+        require(c["conv_out_s2d"] == CLIP[1] and c["warp_s2d"] == CLIP[1] - 1,
+                f"[16c] launches {c}")
+        print(f"[16c] .ckpt -> reference generator.pt ({len(ref_sd['model_state_dict'])} "
+              f"tensors) -> .ckpt: the fused clip (T={CLIP[1]}) bit-equal to the source "
+              f"params' | launches {c}", flush=True)
+        del model, back, want, got
+        torch.cuda.empty_cache()
+
+        adapt_clip_phase(dev, smi, tmp, ckpt)
+        cli_vgg_phase(dev, smi, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    return served
+
+
+def adapt_clip_phase(dev, smi, tmp: str, ckpt: str) -> None:
+    """Phase 16d: ``tools/adapt_clip.py`` on the card at full generator
+    width on a synthetic 268 x 480 clip (adaptation's internal pairs need
+    H and W divisible by 4) with its 1072 x 1920 ground truth."""
+    import cv2
+
+    from tecogan_tpu_torch.data.synthetic import moving_rect_scene
+    from tecogan_tpu_torch.tools import adapt_clip
+    from tecogan_tpu_torch.utils.checkpoint import load_flat, load_generator_params
+
+    hr = moving_rect_scene(num_frames=ADAPT_T, height=4 * ADAPT_H, width=4 * CLIP[3], seed=5)
+    for name, frames in (("lr", np.stack([cv2.resize(f, (CLIP[3], ADAPT_H),
+                                                     interpolation=cv2.INTER_AREA) for f in hr])),
+                         ("gt", hr)):
+        os.makedirs(os.path.join(tmp, name))
+        for t, f in enumerate(frames):
+            cv2.imwrite(os.path.join(tmp, name, f"{t:04d}.png"),
+                        np.clip(np.rint(f * 255.0), 0, 255).astype(np.uint8)[..., ::-1])
+    out_ckpt, out_sr = os.path.join(tmp, "adapted.ckpt"), os.path.join(tmp, "sr.mp4")
+    scores = os.path.join(tmp, "scores.json")
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = adapt_clip.main(["--input", os.path.join(tmp, "lr"), "--g_checkpoint", ckpt,
+                               "--steps", str(ADAPT_STEPS), "--out_ckpt", out_ckpt,
+                               "--out_sr", out_sr, "--gt", os.path.join(tmp, "gt"),
+                               "--json_out", scores, "--num_resblock", str(EXPORT_RESBLOCKS),
+                               "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = _kernel_counts()
+    flat, _ = load_flat(out_ckpt)
+    adapted = load_generator_params(out_ckpt)
+    source = load_generator_params(ckpt)
+    same_tree = (flat and all(k.startswith("model_state_dict//") for k in flat) and
+                 {k: v.shape for k, v in adapted.items() if not isinstance(v, dict)} ==
+                 {k: v.shape for k, v in source.items() if not isinstance(v, dict)})
+    sr, rec = res["sr"], res["score"]
+    with open(scores) as f:
+        recorded = json.load(f)["records"]["ours_adapted"]
+    require(bool(same_tree), "[16d] the adapted .ckpt is not the JAX loader's layout")
+    require(sr.shape == (ADAPT_T, 4 * ADAPT_H, 4 * CLIP[3], 3) and np.isfinite(sr).all(),
+            f"[16d] SR clip {sr.shape}")
+    require(os.path.getsize(out_sr) > 0 and recorded == rec and np.isfinite(rec["psnr_db"]),
+            f"[16d] outputs {rec} {recorded}")
+    require(c["conv_out_s2d"] == ADAPT_T and c["warp_s2d"] == ADAPT_T - 1,
+            f"[16d] serving launches {c}")
+    losses = re.findall(r"adapt step \d+: loss ([-0-9.e]+)", buf.getvalue())
+    require(losses and all(np.isfinite(float(v)) for v in losses), f"[16d] losses {losses}")
+    print(f"[16d] tools/adapt_clip.py, {ADAPT_STEPS} steps on {ADAPT_T} frames of "
+          f"{ADAPT_H}x{CLIP[3]}, {EXPORT_RESBLOCKS} resblocks bf16: {secs:.2f} s in all "
+          f"(serving and scoring inside) | losses {losses} | guard {res['report']} | score "
+          f"{rec} | launches {c} | the .ckpt read back in the JAX loader's layout | {smi}",
+          flush=True)
+
+
+def cli_vgg_phase(dev, smi, tmp: str) -> None:
+    """Phase 16e: CLI train steps at run_convergence_r5.sh's flags with the
+    surrogate VGG-19, whose weights on the card hash to the JAX package's."""
+    from tecogan_tpu_torch.cli import main as cli
+    from tecogan_tpu_torch.data.synthetic import write_synthetic_scene_folders
+    from tecogan_tpu_torch.models import vgg
+    from tecogan_tpu_torch.utils.convert import vgg_params_to_jax
+
+    scenes = os.path.join(tmp, "scenes")
+    write_synthetic_scene_folders(scenes, num_scenes=3, frames_per_scene=120, size=144,
+                                  variety=True)
+    built = []
+    real_vgg_model = vgg.vgg_model
+
+    def recorded(*a, **kw):
+        built.append(real_vgg_model(*a, **kw))
+        return built[-1]
+
+    vgg.vgg_model = recorded
+    out = os.path.join(tmp, "r5")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--mode", "train", "--input_video_dir", scenes, "--str_dir", "1000",
+                      "--end_dir", "1001", "--end_dir_val", "1002", *R5_FLAGS,
+                      "--max_epochs", "1", "--steps_per_epoch", str(CLI16_STEPS),
+                      "--output_dir", out, "--summary_dir", os.path.join(out, "summary")])
+    finally:
+        vgg.vgg_model = real_vgg_model
+    text = buf.getvalue()
+    require(len(built) == 1 and next(built[0].parameters()).device == dev,
+            f"[16e] VGG models built {len(built)}")
+    digest = vgg.params_sha256(vgg_params_to_jax(built[0].state_dict()))
+    require(digest == vgg.SURROGATE_SHA256,
+            f"[16e] the card's surrogate VGG-19 hashes to {digest}, the CPU's to "
+            f"{vgg.SURROGATE_SHA256}")
+    require("fixed-seed SURROGATE weights" in text, "[16e] no surrogate line")
+    steps = re.findall(r"Epoch steps: (\d+) in [0-9.]+ s, ([0-9.]+) ms a step", text)
+    g = [float(v) for v in re.findall(r"Generator loss is: ([-0-9.e]+|nan|inf)", text)]
+    d = [float(v) for v in re.findall(r"Discriminator loss is: ([-0-9.e]+|nan|inf)", text)]
+    require(steps and int(steps[0][0]) == CLI16_STEPS, f"[16e] steps {steps}:\n{text[-2000:]}")
+    require(g and d and np.isfinite(g + d).all(), f"[16e] losses {g} {d}")
+    print(f"[16e] cli.main train at run_convergence_r5.sh's flags (--vgg_scaling 0.2 "
+          f"--vgg_ckpt surrogate), {CLI16_STEPS} steps: {float(steps[0][1]):.3f} ms a step "
+          f"(the CLI's figure) | gen loss {g}, D loss {d} | VGG-19 on the card sha256 "
+          f"{digest} = the JAX surrogate's | {smi}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2019,12 +2365,14 @@ def main() -> None:
     del fast_model, exact_model, fast
     torch.cuda.empty_cache()
     multi = multi_phase(dev, smi)
+    exported = export_phase(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = [{k: rec[k] for k in keys} for rec in (conv, warp, *int8_recs)]
     for rec in records:  # phase 15's paths: each kernel's launches a rank
         rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
+        rec["launches_exported"] = {path: counts[rec["name"]] for path, counts in exported.items()}
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2033,4 +2381,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-exported":
+        serve_child(sys.argv[2])
+    else:
+        main()

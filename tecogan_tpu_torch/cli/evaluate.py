@@ -97,8 +97,8 @@ def main(argv=None, device=None):
                    help="LR kernel for model eval: bilinear is the training pairing "
                         "(data/scenes.py), area the cv2 INTER_AREA kernel")
     p.add_argument("--vgg_ckpt", default=None,
-                   help="a converted VGG-19 .ckpt (the JAX package's 'surrogate' "
-                        "weights are a JAX PRNG draw: export them to a .ckpt)")
+                   help="a converted VGG-19 .ckpt, or 'surrogate' for the JAX package's "
+                        "fixed-seed weights")
     p.add_argument("--lpips_lin", default=None,
                    help="npz of layer-name -> per-channel LPIPS linear weights; without "
                         "it lpips is reported as lpips_surrogate (uniform weights)")

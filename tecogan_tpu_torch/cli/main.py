@@ -409,22 +409,20 @@ def request_graceful_stop(signum=None, frame=None) -> None:
 def _vgg_apply(cfg: TecoConfig, dev: torch.device):
     """The VGG loss's feature function, or None when ``--vgg_scaling`` is
     off.  A ``.ckpt`` path loads converted VGG-19 weights; ``surrogate``
-    names the JAX package's JAX-PRNG weights, which torch cannot draw, so
-    ``init_vgg`` weights seeded from ``--rand_seed`` stand in (and a line
-    says so)."""
+    gives the JAX package's fixed-seed weights (``models.vgg.
+    fixed_seed_vgg_params``, bit for bit)."""
     if cfg.vgg_scaling <= 0.0:
         return None
-    from ..models.vgg import init_vgg, load_vgg_params, make_vgg_apply, vgg_model
+    from ..models.vgg import load_vgg_params, make_vgg_apply, vgg_model
 
     if not cfg.vgg_ckpt:
         raise ValueError("--vgg_scaling > 0 requires --vgg_ckpt (a converted VGG-19 "
-                         "checkpoint, or the literal 'surrogate' for seeded random weights)")
+                         "checkpoint, or the literal 'surrogate' for fixed-seed "
+                         "random-feature weights)")
+    params = load_vgg_params(cfg.vgg_ckpt)
     if cfg.vgg_ckpt == "surrogate":
-        params = init_vgg(torch.Generator().manual_seed(cfg.rand_seed))
-        print(f"VGG loss: init_vgg weights seeded from --rand_seed {cfg.rand_seed}; these "
-              "are NOT the JAX package's surrogate weights (a JAX PRNG draw)")
-    else:
-        params = load_vgg_params(cfg.vgg_ckpt)
+        print("VGG loss: fixed-seed SURROGATE weights (no pretrained VGG-19 available "
+              "offline)")
     return make_vgg_apply(vgg_model(params, device=dev))
 
 

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models import Generator
-from ..ops.kernels.conv_out_s2d import conv_out_s2d_cuda, conv_out_s2d_reference
-from ..ops.kernels.warp_s2d import warp_s2d_feedback_cuda, warp_s2d_feedback_reference
+from ..ops.kernels import conv_out_s2d as _conv_out_kernel
+from ..ops.kernels import warp_s2d as _warp_kernel
 from ..ops.image import deprocess
 from ..ops.space import depth_to_space, space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
@@ -34,13 +34,11 @@ def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
     (B, H, W, 48) bf16, the carry.  ``kernel`` (3, 3, 64, 3) HWIO,
     ``bias`` (3,).
 
-    A CPU tensor takes the plain version; any other tensor takes the CUDA
-    kernel: in bfloat16 (the served route) the tensor-core kernel, in
-    float32 (the fp32 route, a precision reference) the f32 kernel; it
-    raises on any other dtype."""
-    if feat_hr.device.type == "cpu":
-        return conv_out_s2d_reference(feat_hr, kernel, bias).to(torch.bfloat16)
-    return conv_out_s2d_cuda(feat_hr, kernel, bias)
+    The custom op ``tecogan_tpu_torch::conv_out_s2d``: a CPU tensor takes
+    the plain version; a CUDA tensor the CUDA kernel: in bfloat16 (the
+    served route) the tensor-core kernel, in float32 (the fp32 route, a
+    precision reference) the f32 kernel; it raises on any other dtype."""
+    return _conv_out_kernel.conv_out_s2d(feat_hr, kernel, bias)
 
 
 def warp_s2d_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tensor:
@@ -48,11 +46,10 @@ def warp_s2d_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tenso
     ``prev_lr`` (B, H, W, 3) -> the feedback ``deprocess(warp(u8(carry)))``
     as (B, H, W, 48) bf16 in the carry's channel order.
 
-    A CPU tensor takes the plain version; any other tensor takes the CUDA
-    kernel, which raises on what it does not take."""
-    if carry.device.type == "cpu":
-        return warp_s2d_feedback_reference(carry, prev_lr).to(torch.bfloat16)
-    return warp_s2d_feedback_cuda(carry, prev_lr.contiguous())
+    The custom op ``tecogan_tpu_torch::warp_s2d_feedback``: a CPU tensor
+    takes the plain version; a CUDA tensor the CUDA kernel, which raises
+    on what it does not take."""
+    return _warp_kernel.warp_s2d_feedback(carry, prev_lr.contiguous())
 
 
 def frame_warp_feedback(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tensor:

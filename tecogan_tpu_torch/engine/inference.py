@@ -14,18 +14,20 @@ quantized one (engine/quant.py).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn as nn
 
 from ..config import TecoConfig
 from ..models import Generator
-from ..ops.image import deprocess, transfer_dequantize_f32, transfer_to_uint8
+from ..ops.image import (deprocess, start_host_copy, transfer_dequantize_f32,
+                         transfer_to_uint8)
 from ..ops.space import space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
 from .fused import fused_first_frame_s2d, fused_sr_step_s2d, s2d_to_frame
 from .quant import calibrate_clip, quantize_tail, tail_features_int8
-from .state import resolve_device
+from .state import model_defs, resolve_device
 
 
 def sr_step(model: Generator, prev_sr: torch.Tensor, prev_lr: torch.Tensor,
@@ -207,20 +209,6 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
     """
     route = _route(cfg)
 
-    def to_host(sr: torch.Tensor, side) -> tuple:
-        """Start the device-to-host copy of ``sr``; returns (host, event)."""
-        if sr.device.type == "cpu":
-            return sr, None
-        done = torch.cuda.Event()
-        compute = torch.cuda.current_stream(sr.device)
-        side.wait_stream(compute)
-        with torch.cuda.stream(side):
-            host = torch.empty(sr.shape, dtype=sr.dtype, pin_memory=True)
-            host.copy_(sr, non_blocking=True)
-            done.record(side)
-        sr.record_stream(side)
-        return host, done
-
     @torch.inference_mode()
     def infer(model: Generator, lr_clip, chunk: int = 64,
               sink: Optional[Callable] = None, qtail=None):
@@ -258,7 +246,7 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
                 sr = transfer_to_uint8(sr)
             if pending is not None:
                 emit(pending)
-            pending = to_host(sr, side)
+            pending = start_host_copy(sr, side)
             del sr, carries  # free this window on the device before the next runs
         if pending is not None:
             emit(pending)
@@ -267,6 +255,82 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
         return None
 
     return infer
+
+
+class _Window(nn.Module):
+    """One window of the chunked loop as a module around the generator,
+    so that ``torch.func.functional_call`` can bind its parameters."""
+
+    def __init__(self, model: Generator, route: _Route, out_u8: bool):
+        super().__init__()
+        self.model = model
+        self.route = route
+        self.out_u8 = out_u8
+
+    def forward(self, lr_window, carry=None, qtail=None):
+        route = self.route if qtail is None else _int8_route(self.route, qtail)
+        carry, carries = _run(route, self.model, _dequant_in(lr_window), carry)
+        sr = route.frames(carries)
+        if self.out_u8:
+            sr = transfer_to_uint8(sr)
+        # the carried LR frame is a view of the window: a copy, so that the
+        # carry is a tensor of its own (as JAX's is)
+        return (carry[0], carry[1].clone()), sr
+
+
+def window_params(model: Generator) -> Dict[str, torch.Tensor]:
+    """The params the window programs take: ``model``'s parameters as it
+    holds them (the compute dtype, 4-D weights ``channels_last``)."""
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def build_window_programs(cfg: TecoConfig, out_u8: bool = False, quantized: bool = False):
+    """The chunked loop's two window programs, as the JAX package's
+    ``head_fn`` / ``cont_fn`` (tecogan_tpu/engine/inference.py): returns
+    ``(head, cont)`` with
+
+    * ``head(params, lr_window[, qtail]) -> (carry, sr_window)``: frame 0
+      cold, then the warm steps over the rest of the window;
+    * ``cont(params, carry, lr_window[, qtail]) -> (carry, sr_window)``:
+      the warm steps after the carried state.
+
+    ``params`` is :func:`window_params` of a serving generator for
+    ``cfg`` (its parameters by name), bound by ``torch.func.
+    functional_call`` to a generator on the meta device, so a program
+    holds no weights.  ``lr_window`` (B, K, H, W, 3) float [0, 1] or
+    uint8 on the params' device; ``carry`` = (SR carry, previous LR frame);
+    ``sr_window`` (B, K, 4H, 4W, 3) float32, or uint8 with ``out_u8``
+    (``transfer_to_uint8`` on the device).  ``quantized`` programs take
+    the qtail (``build_quantized_clip_inference``'s ``prepare``) as their
+    last input and run the int8 route (fused route only, ``ValueError``
+    otherwise).  Each window runs ``_run``, the per-frame functions of
+    :func:`build_chunked_inference`, so the windows equal its output bit
+    for bit; a partial last window may be padded with its last frame and
+    trimmed, since a frame depends on none after it.  No gradient is
+    recorded when no input requires one; ``torch.export.export`` traces
+    either program (``tecogan_tpu_torch/tools/export_infer.py``)."""
+    if quantized:
+        _require_fused(cfg)
+    window = _Window(model_defs(cfg, device="meta"), _route(cfg), out_u8)
+
+    def call(params, lr_window, carry, qtail):
+        bound = {f"model.{k}": v for k, v in params.items()}
+        return torch.func.functional_call(window, bound, (lr_window, carry, qtail),
+                                          strict=True)
+
+    if quantized:
+        def head(params, lr_window, qtail):
+            return call(params, lr_window, None, qtail)
+
+        def cont(params, carry, lr_window, qtail):
+            return call(params, lr_window, tuple(carry), qtail)
+    else:
+        def head(params, lr_window):
+            return call(params, lr_window, None, None)
+
+        def cont(params, carry, lr_window):
+            return call(params, lr_window, tuple(carry), None)
+    return head, cont
 
 
 class StreamState(NamedTuple):

@@ -33,8 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models import Generator
-from ..ops.kernels.int8_conv import (int8_conv3x3_cuda, int8_conv3x3_reference,
-                                     int8_up2x_cuda, int8_up2x_reference)
+from ..ops.kernels import int8_conv as _int8_kernels
 from ..utils.convert import GENERATOR_TRANSPOSED
 from . import fused
 from .state import float_params, resolve_device
@@ -148,19 +147,17 @@ def qtail_to(qtail: QTail, device) -> QTail:
 
 
 def int8_conv3x3(x, inv_s, wq, deq, bias=None, relu=False, residual=None):
-    """One int8 3x3 layer (``ops/kernels/int8_conv.py``).  A CPU tensor
-    takes the plain version; any other tensor takes the CUDA kernel (bf16
-    or float32), which raises on what it does not take."""
-    if x.device.type == "cpu":
-        return int8_conv3x3_reference(x, inv_s, wq, deq, bias, relu, residual)
-    return int8_conv3x3_cuda(x, inv_s, wq, deq, bias, relu, residual)
+    """One int8 3x3 layer, the custom op ``tecogan_tpu_torch::int8_conv3x3``
+    (``ops/kernels/int8_conv.py``).  A CPU tensor takes the plain version;
+    a CUDA tensor the CUDA kernel (bf16 or float32), which raises on what
+    it does not take."""
+    return _int8_kernels.int8_conv3x3(x, inv_s, wq, deq, bias, relu, residual)
 
 
 def int8_up2x(x, inv_s, wq, deq, bias=None, relu=False, residual=None):
-    """One int8 2x transposed layer; dispatched as :func:`int8_conv3x3`."""
-    if x.device.type == "cpu":
-        return int8_up2x_reference(x, inv_s, wq, deq, bias, relu, residual)
-    return int8_up2x_cuda(x, inv_s, wq, deq, bias, relu, residual)
+    """One int8 2x transposed layer, the custom op
+    ``tecogan_tpu_torch::int8_up2x``; dispatched as :func:`int8_conv3x3`."""
+    return _int8_kernels.int8_up2x(x, inv_s, wq, deq, bias, relu, residual)
 
 
 def tail_features_int8(model: Generator, qtail: QTail, net: torch.Tensor) -> torch.Tensor:

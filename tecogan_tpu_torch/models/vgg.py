@@ -4,20 +4,24 @@ loss's and the evaluation metrics' features.
 ``VGG19`` is the full conv stack; it returns the final pool and every
 conv and pool activation keyed ``vgg_19/<name>``, NHWC, as the JAX model
 does.  Weights cross in the flax layout (``utils.convert``): a converted
-``.ckpt`` through :func:`load_vgg_params`, or :func:`init_vgg`'s seeded
-draw at VGG-19's widths.  The JAX package's ``"surrogate"`` weights are a
-JAX PRNG draw, which torch cannot regenerate, so the port reads them only
-as a ``.ckpt`` written from the JAX package.
+``.ckpt`` through :func:`load_vgg_params`; the JAX package's
+``"surrogate"`` weights, which :func:`fixed_seed_vgg_params` regenerates
+bit for bit from the same JAX PRNG key (``utils.jax_prng``, numpy only);
+or :func:`init_vgg`'s draw from a torch generator at VGG-19's widths.
 """
 
 from __future__ import annotations
 
+import hashlib
+import math
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import jax_prng
 from .layers import Conv
 
 # (name, out_channels) per VGG-19 layer; None is a 2x2 max pool
@@ -30,6 +34,10 @@ VGG19_CFG = [
 ]
 
 VGG_MEAN = (123.68, 116.78, 103.94)  # reference train.py:6
+SURROGATE_SEED = 20260816  # tecogan_tpu/models/vgg.py's fixed seed
+# params_sha256 of the JAX package's fixed_seed_vgg_params(): what the
+# regenerated surrogate hashes to on any host
+SURROGATE_SHA256 = "a851feade8d6616c2527d92c8abf63d10b55df43fdd56c150b401f4d35832f41"
 
 
 class VGG19(nn.Module):
@@ -80,15 +88,48 @@ def init_vgg(generator: torch.Generator) -> Dict[str, Any]:
     return params
 
 
+def fixed_seed_vgg_params(seed: int = SURROGATE_SEED) -> Dict[str, Any]:
+    """The JAX package's surrogate VGG-19 params
+    (``tecogan_tpu.models.vgg.fixed_seed_vgg_params``: flax's init of
+    ``VGG19`` under ``PRNGKey(seed)``), bit for bit, as float32 numpy in
+    the flax layout: HWIO ``kernel`` and ``bias`` per ``conv*``, each
+    ``U(+-sqrt(1 / (9 cin)))`` (tecogan_tpu/models/layers.py's torch-style
+    init), drawn with ``utils.jax_prng`` under the key flax gives the
+    parameter (its module name, then counter 1 for the kernel and 2 for
+    the bias)."""
+    root = jax_prng.prng_key(seed)
+    params, cin = {}, 3
+    for name, ch in VGG19_CFG:
+        if ch is None:
+            continue
+        bound = math.sqrt(1.0 / (9 * cin))
+        params[name] = {
+            "kernel": jax_prng.uniform(jax_prng.flax_param_key(root, name, 1),
+                                       (3, 3, cin, ch), -bound, bound),
+            "bias": jax_prng.uniform(jax_prng.flax_param_key(root, name, 2),
+                                     (ch,), -bound, bound)}
+        cin = ch
+    return params
+
+
+def params_sha256(params: Dict[str, Any]) -> str:
+    """SHA-256 of a flax-layout VGG-19 tree: each ``conv*`` layer in
+    order, its float32 ``kernel`` then ``bias`` bytes (C order)."""
+    h = hashlib.sha256()
+    for name, ch in VGG19_CFG:
+        if ch is not None:
+            for leaf in ("kernel", "bias"):
+                h.update(np.ascontiguousarray(params[name][leaf], dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
 def load_vgg_params(vgg_ckpt: str) -> Dict[str, Any]:
-    """The flax-layout params of a converted VGG-19 ``.ckpt`` (its
-    ``model_state_dict`` subtree when it has one).  The JAX package's
-    ``"surrogate"`` is refused: those weights come from a JAX PRNG key."""
+    """Resolve ``--vgg_ckpt``: the literal ``"surrogate"`` gives
+    :func:`fixed_seed_vgg_params` (the JAX package's weights); a path
+    gives the flax-layout params of a converted VGG-19 ``.ckpt`` (its
+    ``model_state_dict`` subtree when it has one)."""
     if vgg_ckpt == "surrogate":
-        raise ValueError(
-            "the 'surrogate' VGG weights are a JAX PRNG draw "
-            "(tecogan_tpu.models.vgg.fixed_seed_vgg_params) that torch cannot "
-            "regenerate; write them to a .ckpt from the JAX package and pass its path")
+        return fixed_seed_vgg_params()
     from ..utils.checkpoint import load_flat, unflatten
 
     tree = unflatten(load_flat(vgg_ckpt)[0])

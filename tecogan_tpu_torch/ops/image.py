@@ -52,6 +52,24 @@ def transfer_to_uint8(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(0.0, 255.0).to(torch.uint8)
 
 
+def start_host_copy(x: torch.Tensor, side) -> tuple:
+    """Start copying the device tensor ``x`` to pinned host memory on the
+    stream ``side``, after the work already queued for ``x``; returns
+    ``(host, done)``, ``done`` the event to wait on before reading
+    ``host``.  A CPU tensor is returned as it is, with no event.  The
+    device's next work overlaps the copy."""
+    if x.device.type == "cpu":
+        return x, None
+    done = torch.cuda.Event()
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        done.record(side)
+    x.record_stream(side)
+    return host, done
+
+
 def to_uint8(frames) -> np.ndarray:
     """float [0,1] -> uint8 numpy by ``* 255`` in float32 then truncation
     (the reference's save_as_gif); uint8 input passes through unchanged.

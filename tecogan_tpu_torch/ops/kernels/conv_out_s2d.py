@@ -13,6 +13,13 @@ bf16 with channel ``c*16 + a*4 + b`` holding sigmoid(conv)[4i+a, 4j+b, c].
 ``feat`` in bf16 (the served route) takes the tensor-core kernel, which
 rounds the weights to bf16 as the JAX route does; in float32 (the fp32
 route, a precision reference) a kernel of f32 FMAs on the f32 weights.
+
+The function is the ``torch.library`` operator
+``tecogan_tpu_torch::conv_out_s2d`` (:data:`conv_out_s2d`): on a CUDA
+tensor it runs :func:`conv_out_s2d_cuda` (the kernel or an error), on a
+CPU tensor the plain version, and its fake gives the contiguous output
+without touching data, so ``torch.export`` can trace a program that
+calls it.  Importing the module registers the op; nothing is built.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import CSRC, load
+from ._library import register
 
 SOURCE = CSRC / "conv_out_s2d.cu"
 
@@ -110,3 +118,17 @@ def conv_out_s2d_cuda(feat: torch.Tensor, kernel: torch.Tensor,
         raise RuntimeError(f"conv_out_s2d launch failed with CUDA error {err}")
     launch_count += 1
     return out
+
+
+def _conv_out_s2d_cpu(feat: torch.Tensor, kernel: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    return conv_out_s2d_reference(feat, kernel, bias).to(torch.bfloat16).contiguous()
+
+
+def _conv_out_s2d_fake(feat, kernel, bias):
+    B, H4, W4, _ = feat.shape
+    return feat.new_empty((B, H4 // 4, W4 // 4, 48), dtype=torch.bfloat16)
+
+
+conv_out_s2d = register("conv_out_s2d", "(Tensor feat, Tensor kernel, Tensor bias) -> Tensor",
+                        conv_out_s2d_cuda, _conv_out_s2d_cpu, _conv_out_s2d_fake)

@@ -29,6 +29,13 @@ dtype, bit-equal to the plain version.  Each launch is one persistent
 block an SM that holds the layer's weights in shared memory and computes
 all Cout channels of its tiles with ``wgmma``; the source's header gives
 the design and its shared-memory budget for each (Cin, Cout).
+
+Both functions are ``torch.library`` operators,
+``tecogan_tpu_torch::int8_conv3x3`` and ``::int8_up2x`` (:data:`int8_conv3x3`,
+:data:`int8_up2x`): on CUDA tensors the kernels (or an error), on CPU
+tensors the plain versions; their fakes give the contiguous output
+without touching data.  Importing the module registers them; nothing is
+built.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import CSRC, load
+from ._library import register
 
 SOURCE = CSRC / "int8_conv.cu"
 CHANNELS = (64, 128)
@@ -232,3 +240,29 @@ def int8_up2x_cuda(x: torch.Tensor, inv_s: torch.Tensor, wq: torch.Tensor,
     if out.numel():
         up2x_launch_count += 1
     return out
+
+
+_SCHEMA = ("(Tensor x, Tensor inv_s, Tensor wq, Tensor deq, Tensor? bias, bool relu, "
+           "Tensor? residual) -> Tensor")
+
+
+def _fake(up: bool):
+    def fake(x, inv_s, wq, deq, bias, relu, residual):
+        B, H, W, _ = x.shape
+        s = 2 if up else 1
+        return x.new_empty((B, s * H, s * W, wq.shape[0]))
+
+    return fake
+
+
+def _cpu(reference):
+    def cpu(x, inv_s, wq, deq, bias, relu, residual):
+        return reference(x, inv_s, wq, deq, bias, relu, residual).contiguous()
+
+    return cpu
+
+
+int8_conv3x3 = register("int8_conv3x3", _SCHEMA, int8_conv3x3_cuda,
+                        _cpu(int8_conv3x3_reference), _fake(False))
+int8_up2x = register("int8_up2x", _SCHEMA, int8_up2x_cuda, _cpu(int8_up2x_reference),
+                     _fake(True))

@@ -27,6 +27,7 @@ from ..image import deprocess
 from ..space import depth_to_space
 from ..warp import grid_sample, pseudo_flow_nchw
 from ._build import CSRC, load
+from ._library import register
 
 SOURCE = CSRC / "warp_s2d.cu"
 
@@ -103,3 +104,16 @@ def warp_s2d_feedback_cuda(carry: torch.Tensor,
         raise RuntimeError(f"warp_s2d launch failed with CUDA error {err}")
     launch_count += 1
     return out
+
+
+def _warp_s2d_feedback_cpu(carry: torch.Tensor, prev_lr: torch.Tensor) -> torch.Tensor:
+    return warp_s2d_feedback_reference(carry, prev_lr).to(torch.bfloat16)
+
+
+def _warp_s2d_feedback_fake(carry, prev_lr):
+    return carry.new_empty(carry.shape)
+
+
+warp_s2d_feedback = register("warp_s2d_feedback", "(Tensor carry, Tensor prev_lr) -> Tensor",
+                             warp_s2d_feedback_cuda, _warp_s2d_feedback_cpu,
+                             _warp_s2d_feedback_fake)

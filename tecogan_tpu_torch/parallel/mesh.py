@@ -6,7 +6,8 @@ devices.  The port runs one process a rank, each driving one device (one
 card a rank under NCCL, or the CPU under gloo), joined by a
 ``torch.distributed`` process group; :class:`Mesh` names this process's
 place in it.  Only the data axis is ported: ``n_model > 1`` (the JAX
-package's channel-sharded tensor parallelism, ``parallel/tp.py``) raises,
+package's channel-sharded tensor parallelism, ``parallel/tp.py``, next in
+ROADMAP.md's queue 1) raises,
 and ``n_slice`` only enlarges the world, since NCCL picks its own rings.
 
 * :func:`spawn` starts the ranks (start method ``spawn``, ``file://``
@@ -140,9 +141,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     ``engine.state.resolve_device``)."""
     if n_model > 1:
         raise NotImplementedError(
-            f"n_model={n_model}: tensor parallelism is not ported (ROADMAP.md, "
-            "'Do not port': parallel/tp.py; ~11M params need none, DESIGN.md, "
-            "Parallelism)")
+            f"n_model={n_model}: tensor parallelism is not ported yet (ROADMAP.md, "
+            "queue 1: parallel/tp.py)")
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0

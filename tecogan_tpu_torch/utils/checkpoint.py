@@ -70,6 +70,17 @@ def load_generator_params(path: str) -> Dict[str, Any]:
     return params
 
 
+def save_generator_params(path: str, params, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write the generator's params alone (no optimizer state) as the JAX
+    package's ``save_generator_params`` does: the flax tree under
+    ``model_state_dict``, what :func:`load_generator_params` and the JAX
+    loader read.  ``params`` is a ``models.Generator`` ``state_dict``
+    (tensors on any device) or the flax tree."""
+    if any(isinstance(v, torch.Tensor) for v in params.values()):
+        params = generator_params_to_jax(params)
+    save_pytree(path, {"model_state_dict": params}, meta=meta)
+
+
 def _sub(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
     """The subtree under ``prefix`` of a flat checkpoint, nested."""
     prefix += _SEP

@@ -493,16 +493,51 @@ def test_profile_dir_writes_a_chrome_trace(ws, tmp_path):
         assert '"traceEvents"' in f.read()
 
 
-def test_vgg_surrogate_trains_on_seeded_weights(ws, tmp_path):
+def test_vgg_surrogate_is_the_jax_surrogate(ws, tmp_path, rng):
+    """``--vgg_ckpt surrogate`` is the JAX package's surrogate VGG-19: the
+    CLI trains an epoch with it (the JAX CLI's line printed), the VGG
+    features its loss reads equal the JAX features on those weights, and
+    ``cli/evaluate.py --vgg_ckpt surrogate`` scores ``vgg_dist`` and
+    ``lpips_surrogate`` as the JAX evaluation does."""
+    import json
+
+    from tecogan_tpu.models import vgg as j_vgg
+
     cfg = parse_config(_train_argv(ws, tmp_path, "--vgg_scaling", "0.5", "--vgg_ckpt",
                                    "surrogate", "--steps_per_epoch", "1"))
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.run_train(cfg, device="cpu")
-    assert "NOT the JAX package's surrogate" in buf.getvalue()
+    assert "fixed-seed SURROGATE weights" in buf.getvalue()
     assert "Epoch: 1" in buf.getvalue()
     with pytest.raises(ValueError, match="requires --vgg_ckpt"):
         cli.run_train(cfg.replace(vgg_ckpt=None), device="cpu")
+
+    surrogate = j_vgg.fixed_seed_vgg_params()
+    images = rng.random((2, 32, 32, 3), np.float32)
+    layers = ["vgg_19/conv2_2", "vgg_19/conv3_4", "vgg_19/conv4_4"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = cli._vgg_apply(cfg, torch.device("cpu"))(torch.from_numpy(images), layers)
+    want = j_vgg.vgg19_features(surrogate, jnp.asarray(images), layers)
+    for k in layers:
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=SCORE_TOL * float(np.abs(w).max()), err_msg=k)
+
+    sr = rng.random((3, 32, 32, 3), np.float32)
+    hr = np.clip(sr + rng.normal(0, 0.05, sr.shape).astype(np.float32), 0, 1)
+    image.save_as_media(sr, str(tmp_path / "sr.gif"))
+    image.save_as_media(hr, str(tmp_path / "hr.gif"))
+    argv = ["--sr_dir", str(tmp_path / "sr.gif"), "--hr_dir", str(tmp_path / "hr.gif"),
+            "--vgg_ckpt", "surrogate"]
+    with contextlib.redirect_stdout(io.StringIO()) as jbuf:
+        j_evaluate.main(argv)
+    want = json.loads([ln for ln in jbuf.getvalue().splitlines() if "__aggregate__" in ln][0])
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate.main(argv, device="cpu")
+    assert got.keys() == want.keys() and "vgg_dist" in got and "lpips_surrogate" in got
+    for k in ("psnr_db", "ssim", "vgg_dist", "lpips_surrogate"):
+        assert abs(got[k] - want[k]) <= SCORE_TOL * max(1.0, abs(want[k])), k
 
 
 def test_async_save_reads_back_bit_equal(tmp_path):

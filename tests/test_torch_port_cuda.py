@@ -727,3 +727,38 @@ def test_kernels_on_halo_blocks_are_the_full_frames_rows(cuda, rank):
         torch.cuda.synchronize()
         assert torch.equal(got, full[:, rows]), up
         assert torch.equal(got, want), up
+
+
+def test_custom_ops_on_the_card(cuda):
+    """The four custom ops on CUDA tensors: ``torch.library.opcheck``
+    (the fake's shape, dtype and strides against the kernel's output,
+    the schema, no autograd registered), each launch counted once and
+    its output the wrapper's."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.rand(shape, generator=g, device="cuda").to(dtype)
+
+    wq = torch.randint(-127, 128, (64, 3, 3, 64), dtype=torch.int8, device="cuda",
+                       generator=g)
+    q = (torch.tensor(50.0, device="cuda"), wq, rand(64) * 1e-3)
+    x = rand(1, 12, 20, 64, dtype=torch.bfloat16)
+    cases = {
+        "conv_out_s2d": ((rand(1, 48, 64, 64, dtype=torch.bfloat16), rand(3, 3, 64, 3) * 0.1,
+                          rand(3)), kmod.conv_out_s2d_cuda, (kmod, "launch_count")),
+        "warp_s2d_feedback": ((rand(1, 12, 16, 48, dtype=torch.bfloat16), rand(1, 12, 16, 3)),
+                              wmod.warp_s2d_feedback_cuda, (wmod, "launch_count")),
+        "int8_conv3x3": ((x, *q, rand(64), True, None), qmod.int8_conv3x3_cuda,
+                         (qmod, "conv3x3_launch_count")),
+        "int8_up2x": ((x, *q, None, False, rand(1, 24, 40, 64, dtype=torch.bfloat16)),
+                      qmod.int8_up2x_cuda, (qmod, "up2x_launch_count")),
+    }
+    for name, (args, wrapper, (mod, counter)) in cases.items():
+        op = getattr(torch.ops.tecogan_tpu_torch, name).default
+        result = torch.library.opcheck(op, args)
+        assert set(result.values()) == {"SUCCESS"}, (name, result)
+        setattr(mod, counter, 0)
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert getattr(mod, counter) == 1, name
+        assert got.is_contiguous() and torch.equal(got, wrapper(*args)), name

@@ -138,13 +138,21 @@ paper's config.  Phases:
    ``d_loss`` at step 0 within 1e-4, the D-balance decisions equal, the
    state the same on both ranks), its ms in bf16, one K=2 call of the
    multi-step, and DP serving and DP int8 serving of 2 streams bit-equal
-   to each stream's single-device clip; (e) the FNet step at the paper's
+   to each stream's single-device clip; (c) the tensor-parallel train step
+   (``parallel.tp``) on 4 gloo ranks sharing the card: the 1x2 grid at the
+   paper's config (bf16) on the first two ranks against the single-process
+   bf16 step (``gen_loss`` each step and ``d_loss`` at step 0 within 2e-2),
+   then the 2x2 grid at the tiny fp32 config (TF32 off) against the
+   single-process step within 1e-4; ms a step, all-gathers, all-reduces
+   and MB a rank of a step (labelled: gloo stages them through the host),
+   the sharded generator keys, the replicated leaves equal across each
+   model group, no hand-kernel launch; (e) the FNet step at the paper's
    config (bf16): 3 steps, ms a step, peak memory, and a tiny fp32 config
    against the CPU within 1e-4; (f) ``--spatial_shards 2`` and
    ``--data_axis 2`` through ``cli.main.main``, clamped to the one card
    with the JAX package's warning.
 
-Phases 9-11, 13a, c-e, and 15's train steps run no hand kernel: training runs cuDNN convs and
+Phases 9-11, 13a, c-e, and 15's train steps (DP and TP) run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 kernels' times are a frame's: the
 sum over the frame's launches at each layer shape (37 and 2).
@@ -155,7 +163,7 @@ one call to the next, and these phases compare paths bit for bit.
 
 Every failed check exits non-zero; there is no CPU path.  The line before
 the card's line is the kernels' JSON record (``launches_multi``: each
-kernel's launches a rank on phase 15's paths); the last line of standard
+kernel's launches a rank on phase 15's paths, the TP step's among them); the last line of standard
 output is the JSON device record.
 """
 
@@ -1191,6 +1199,9 @@ RECKONED_MB = (20.0, 40.0)
 DP_TIMED_STEPS = 3
 FNET_WARMUP, FNET_STEPS = 1, 3
 FNET_TINY = dict(crop_size=16, RNN_N=3, num_resblock=1, batch_size=1, precision="fp32")
+TP_STEPS = 2
+TP_TINY = dict(crop_size=8, RNN_N=9, num_resblock=2, discrim_resblocks=1, discrim_channels=16,
+               precision="fp32", batch_size=4)
 
 
 def _model_on(cfg, params, dev):
@@ -1506,6 +1517,183 @@ def _phase15_rank(dev, out: str, checks: tuple) -> None:
         json.dump(res, f)
 
 
+class _CollectiveCount:
+    """``torch.distributed.all_gather`` / ``all_reduce`` calls and the
+    bytes this rank receives (the all-gather's gathered parts, the
+    all-reduce's tensor) while ``on`` is set."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.gather, self.reduce = dist, dist.all_gather, dist.all_reduce
+        self.counts = {"all_gather": 0, "all_reduce": 0}
+        self.bytes, self.on = 0, False
+        dist.all_gather, dist.all_reduce = self.call_gather, self.call_reduce
+
+    def call_gather(self, tensor_list, tensor, group=None, async_op=False):
+        if self.on:
+            self.counts["all_gather"] += 1
+            self.bytes += tensor.numel() * tensor.element_size() * len(tensor_list)
+        return self.gather(tensor_list, tensor, group=group, async_op=async_op)
+
+    def call_reduce(self, tensor, op=None, group=None, async_op=False):
+        if self.on:
+            self.counts["all_reduce"] += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+        if op is None:
+            return self.reduce(tensor, group=group, async_op=async_op)
+        return self.reduce(tensor, op=op, group=group, async_op=async_op)
+
+    def restore(self):
+        self.dist.all_gather, self.dist.all_reduce = self.gather, self.reduce
+
+
+def _tp_check(dev, mesh, main: bool, cfg, steps: int) -> dict:
+    """``steps`` TP steps (``parallel.tp``) on ``mesh`` from seed-0 weights on
+    synthetic batches; rank 0 runs the single-process steps on the same
+    batches first and keeps their losses.  Each rank's losses, ms a step
+    (host clock, synchronised), collectives and MB of the last step, hand
+    kernel launches, the digests of its replicated leaves and of the
+    gathered state, and the sharded generator keys."""
+    from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+    from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
+                                                state_from_params)
+    from tecogan_tpu_torch.engine.train import build_train_step
+    from tecogan_tpu_torch.parallel import (build_tp_train_step, gather_state_tp,
+                                            replicate_state, shard_batch, shard_state_tp,
+                                            state_shardings)
+
+    g = torch.Generator().manual_seed(0)
+    weights = (init_generator(cfg, g), *init_discriminator(cfg, g))
+    batches = [synthetic_scene_batch(cfg.batch_size, cfg.RNN_N, cfg.crop_size,
+                                     seed=i * cfg.batch_size) for i in range(steps)]
+    res = {"losses": [], "ms": []}
+    if main:
+        ref = state_from_params(cfg, *weights, device=dev)
+        single = build_train_step(cfg, device=dev)
+        res["single_losses"] = []
+        for lr, hr in batches:
+            ref, m, _ = single(ref, torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev))
+            res["single_losses"].append((float(m["gen_loss"]), float(m["d_loss"])))
+        del ref, single
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = shard_state_tp(mesh, replicate_state(mesh, state_from_params(cfg, *weights,
+                                                                          device=dev)))
+    dims = state_shardings(mesh, state)
+    res["sharded_g"] = [k for k, d in dims.params_g.items() if d is not None]
+    step = build_tp_train_step(cfg, mesh)
+    count = _CollectiveCount()
+    _reset_counts()
+    try:
+        for i, (lr, hr) in enumerate(batches):
+            lr, hr = shard_batch(mesh, lr, hr)
+            count.on = i == steps - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m, _ = step(state, lr, hr)
+            res["losses"].append((float(m["gen_loss"]), float(m["d_loss"])))
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            count.on = False
+    finally:
+        count.restore()
+    res["counts"] = _kernel_counts()
+    res["collectives"], res["mb"] = count.counts, count.bytes / 1e6
+    res["replicated_digest"] = float(sum(
+        float(v.double().sum()) for name in ("params_g", "params_d")
+        for k, v in getattr(state, name).items() if getattr(dims, name)[k] is None))
+    full = gather_state_tp(mesh, state)
+    res["full_digest"] = float(sum(float(v.double().sum())
+                                   for v in _train_leaves(full).values()))
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def _tp_rank(dev, out: str, grids: tuple) -> None:
+    """One rank of phase 15c: each of ``grids`` ((name, n_data, n_model,
+    cfg), the grid on the first ranks) in order; each rank writes its
+    results as JSON to ``out/r<rank>.json``."""
+    import torch.distributed as dist
+
+    from tecogan_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    for name, n_data, n_model, cfg in grids:
+        mesh = make_mesh(n_data, n_model, device=dev)
+        if mesh.member:
+            res[name] = _tp_check(dev, mesh, dist.get_rank() == 0, cfg, TP_STEPS)
+            res[name]["grid"] = (mesh.rank, mesh.model_rank)
+        dist.barrier()
+    with open(os.path.join(out, f"r{dist.get_rank()}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_phase(dev, smi) -> dict:
+    """Phase 15c: the tensor-parallel train step (``parallel.tp``) on 4 gloo
+    ranks sharing the card.  Returns each hand kernel's launches a rank."""
+    import tempfile
+
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.parallel import spawn
+
+    grids = (("1x2", 1, 2, TecoConfig(precision="bf16")), ("2x2", 2, 2, TecoConfig(**TP_TINY)))
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.perf_counter()
+    spawn(_tp_rank, 4, device="cuda:0", backend="gloo", init_file=os.path.join(out, "rdzv"),
+          args=(out, grids))
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(out, f"r{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[15c] 4 ranks over gloo sharing the one card: TP grids 1x2 (paper's config, "
+          f"bf16) and 2x2 (tiny, fp32), {time.perf_counter() - t0:.1f} s with the ranks' start",
+          flush=True)
+    return _tp_report(ranks, smi)
+
+
+def _tp_report(ranks: list, smi: str) -> dict:
+    """Phase 15c's checks and lines from the ranks' results."""
+    require(all(r["backend"] == "gloo" and r["world"] == 4 for r in ranks),
+            f"[15c] ranks report {[(r['backend'], r['world']) for r in ranks]}")
+    launches = {}
+    for name, members, bar, what in (("1x2", 2, BF16_RTOL, "the paper's config, bf16"),
+                                     ("2x2", 4, CARD_CPU_RTOL, "tiny, fp32, TF32 off")):
+        rs = [r[name] for r in ranks[:members]]
+        require(all(name not in r for r in ranks[members:]), f"[15c] {name} ran off the grid")
+        require([tuple(r["grid"]) for r in rs] == [(i // 2, i % 2) for i in range(members)],
+                f"[15c] {name} grid {[r['grid'] for r in rs]}")
+        t = rs[0]
+        apart = [(rel(a, c), rel(b, d)) for (a, b), (c, d)
+                 in zip(t["losses"], t["single_losses"])]
+        print(f"[15c] TP step {name} ({what}): losses (gen, d) {t['losses']} vs single-process "
+              f"{t['single_losses']} (relative {apart}; bar {bar}: gen_loss each step, d_loss "
+              f"at step 0) | ms a step {[round(x, 3) for x in t['ms']]} (rank 0, host clock; "
+              f"gloo stages every collective through the host: not a TP speed figure) | "
+              f"a step: {t['collectives']['all_gather']} all-gathers, "
+              f"{t['collectives']['all_reduce']} all-reduces, {t['mb']:.2f} MB a rank | peak "
+              f"{t['peak_gib']:.2f} GiB a rank | hand kernels {t['counts']} | {smi}", flush=True)
+        print(f"[15c] TP {name}: sharded generator keys ({len(t['sharded_g'])}): "
+              f"{', '.join(t['sharded_g'])}", flush=True)
+        require(np.all(np.isfinite(t["losses"])), f"[15c] {name} losses {t['losses']}")
+        require(all(r["losses"] == t["losses"] and r["full_digest"] == t["full_digest"]
+                    for r in rs), f"[15c] {name}: ranks differ in losses or gathered state")
+        require(all(rs[i]["replicated_digest"] == rs[i - i % 2]["replicated_digest"]
+                    for i in range(members)),
+                f"[15c] {name}: replicated leaves differ across a model group")
+        require(all(g <= bar for g, _ in apart) and apart[0][1] <= bar,
+                f"[15c] {name} losses against the single-process step: {apart}")
+        require("conv_in.weight" in t["sharded_g"] and "conv_out.weight" not in t["sharded_g"],
+                f"[15c] {name} sharded keys {t['sharded_g']}")
+        for r in rs:
+            require(sum(r["counts"].values()) == 0, f"[15c] {name} TP step launched {r['counts']}")
+        launches[f"TP train step {name}, a rank"] = t["counts"]
+    return launches
+
+
 def multi_phase(dev, smi) -> dict:
     """Phase 15: the multi-rank paths.  Returns each hand kernel's launches
     a rank on them, for the kernels' record."""
@@ -1622,6 +1810,7 @@ def multi_phase(dev, smi) -> dict:
             print(f"[{tag}] DP serving, {world} streams one a rank: bf16 and int8 bit-equal "
                   f"to each stream's single-device clip | launches a rank bf16 "
                   f"{s['bf16_counts']}, int8 {s['int8_counts']}", flush=True)
+    launches.update(tp_phase(dev, smi))
     fnet_phase(dev, smi)
     cli_multi_phase(dev, smi)
     return launches

@@ -277,7 +277,13 @@ class TrainState:
     """The JAX ``TrainState`` (tecogan_tpu/engine/state.py:24-32):
     ``params_g`` / ``params_d`` are the models' float32 params by
     ``state_dict`` key, ``batch_stats_d`` the discriminator's BN running
-    statistics (``<bn module>.mean`` / ``.var``)."""
+    statistics (``<bn module>.mean`` / ``.var``).
+
+    ``model_shards`` is None for a full state.  A rank's tensor-parallel
+    shard (``parallel.tp.shard_state_tp``) holds there, under
+    ``params_g`` and ``params_d``, each params key's dim that is split over
+    the model group (None where the leaf is replicated); the Adam moments
+    follow their params."""
 
     params_g: Tensors
     params_d: Tensors
@@ -286,6 +292,7 @@ class TrainState:
     opt_d: AdamState
     step: int
     epoch: int
+    model_shards: Optional[Dict[str, Dict[str, Optional[int]]]] = None
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)

@@ -15,6 +15,16 @@ each) before Adam and before the D-balance gate, so every rank takes the
 same decision and holds the same state.  Since every loss is a mean over
 equal shares, that is the single-process step on the global batch.
 
+With a ``model_group`` as well (parallel/tp.py) the state holds this
+rank's slices of the channel-sharded conv weights and their moments, and
+those convs run column-parallel over the model group
+(``models.layers.set_model_group``); the data-parallel collectives above
+stay on ``group``, the ranks with this rank's channel slice.  Every rank
+of the model group computes the replicated leaves' gradients itself, and
+on the card a backward may sum in another order on each (cuDNN's weight
+gradients, ``grid_sample``'s atomics): one more mean, over the model
+group, of those gradients keeps the replicated leaves equal on its ranks.
+
 The phases run under ``torch.profiler.record_function`` spans
 (``gen_objective``, ``gen_backward``, ``disc_step``, ``adam``, and
 ``all_reduce`` with a group), which ``tools/profile_train.py`` reads.
@@ -29,6 +39,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import TecoConfig
+from ..models.layers import set_model_group
 from ..ops.image import transfer_dequantize_f32
 from .losses import discriminator_loss, tecogan_losses
 from .state import TrainState, make_optimizers, resolve_device, train_model_defs
@@ -59,7 +70,8 @@ def _rank_mean(tensors: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tenso
     return out
 
 
-def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
+def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None,
+                     model_group=None):
     """Returns ``train_step(state, lr_batch, hr_batch) -> (state, metrics,
     gen_outputs)`` on ``device`` (default: the card, see
     ``engine.state.resolve_device``).
@@ -71,9 +83,15 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
 
     ``group``: a data-parallel process group (see the module's
     docstring); the batches are then this rank's share of equal size,
-    the metrics the global means and ``gen_outputs`` this rank's."""
+    the metrics the global means and ``gen_outputs`` this rank's.
+    ``model_group``: the tensor-parallel group (``parallel.tp``), whose
+    ranks see the same samples; the state is then this rank's shard
+    (``parallel.tp.shard_state_tp``)."""
     dev = resolve_device(device)
     gen, disc = train_model_defs(cfg, device=dev)
+    if model_group is not None:
+        sharded = {"g": set_model_group(gen, model_group),
+                   "d": set_model_group(disc, model_group)}
     opt_g, opt_d, sched = make_optimizers(cfg)
 
     def train_step(state: TrainState, lr_batch: torch.Tensor,
@@ -108,6 +126,14 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
                 # Dst_ratio is the same on every rank: kept out of the mean
                 metrics.update(_rank_mean(
                     {k: v for k, v in metrics.items() if k != "Dst_ratio"}, group))
+        if model_group is not None:
+            with record_function("all_reduce"):
+                grads = {"g": grads_g, "d": grads_d}
+                replicated = _rank_mean({(m, k): v for m, gr in grads.items()
+                                         for k, v in gr.items() if k not in sharded[m]},
+                                        model_group)
+                for (m, k), v in replicated.items():
+                    grads[m][k] = v
         # D-balance gating, active with bug_parity off: skip the D update
         # while the balance EMA says D is winning (the reference threads
         # counter1/counter2 but gates nothing)
@@ -127,10 +153,9 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None):
         metrics["withD_counter"] = apply_d.float()
         metrics["w_o_D_counter"] = 1.0 - apply_d.float()
 
-        new_state = TrainState(params_g=new_g, params_d=new_d,
-                               batch_stats_d=new_stats, opt_g=opt_g_state,
-                               opt_d=opt_d_state, step=state.step + 1,
-                               epoch=state.epoch)
+        new_state = state.replace(params_g=new_g, params_d=new_d,
+                                  batch_stats_d=new_stats, opt_g=opt_g_state,
+                                  opt_d=opt_d_state, step=state.step + 1)
         return new_state, metrics, aux["gen_outputs"].detach()
 
     return train_step

@@ -11,6 +11,14 @@ dtype: the training path holds float32 params and computes in bf16.  The
 serving generator holds its weights in the compute dtype, where the cast
 is a no-op.  The bias goes through ``F.conv2d``, whose cuDNN path adds it
 after the conv in the output dtype, as the JAX layers add it.
+
+Tensor parallelism (parallel/tp.py): :func:`set_model_group` gives a
+model's convs whose output channels split over the group
+(:func:`shards_over_model`) that group.  Such a conv is then given its
+rank's slice of the weight and runs column-parallel: the input through
+``copy_to_model``, the conv of the slice, the slices joined by
+``gather_channels``, and the bias, which is replicated, added in full
+after the join.
 """
 
 from __future__ import annotations
@@ -26,6 +34,23 @@ def _cast(p, dtype: torch.dtype):
     return None if p is None else p.to(dtype)
 
 
+def shards_over_model(out_channels: int, n_model: int) -> bool:
+    """Whether a conv's output channels split over ``n_model`` ranks: the
+    JAX package's rule for a 4-D leaf (tecogan_tpu/parallel/tp.py:33-45),
+    they divide evenly and each rank keeps at least two."""
+    return n_model > 1 and out_channels % n_model == 0 and out_channels >= 2 * n_model
+
+
+def _column_parallel(conv, x: torch.Tensor, bias: Optional[torch.Tensor],
+                     group) -> torch.Tensor:
+    """``conv`` (this rank's slice of the output channels, no bias) of
+    ``x``, the group's slices joined, then the full bias."""
+    from ..parallel.collectives import copy_to_model, gather_channels
+
+    y = gather_channels(conv(copy_to_model(x, group)), group)
+    return y if bias is None else y + bias[:, None, None]
+
+
 class Conv(nn.Conv2d):
     """kxk cross-correlation, padding (k-1)//2 (the reference conv2):
     3x3 stride 1 in the generator, 4x4 stride 2 in the discriminator."""
@@ -36,9 +61,14 @@ class Conv(nn.Conv2d):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
                          padding=(kernel - 1) // 2, bias=bias, dtype=dtype)
 
+    model_group = None  # set by set_model_group: run column-parallel
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  _cast(self.bias, x.dtype))
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+        if self.model_group is None:
+            return self._conv_forward(x, w, b)
+        return _column_parallel(lambda t: self._conv_forward(t, w, None), x, b,
+                                self.model_group)
 
 
 class ConvTranspose2x(nn.ConvTranspose2d):
@@ -50,10 +80,17 @@ class ConvTranspose2x(nn.ConvTranspose2d):
         super().__init__(in_ch, out_ch, 3, stride=2, padding=1,
                          output_padding=1, dtype=dtype)
 
+    model_group = None  # set by set_model_group: run column-parallel
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype),
-                                  _cast(self.bias, x.dtype), stride=2,
-                                  padding=1, output_padding=1)
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+
+        def conv(t, bias=None):
+            return F.conv_transpose2d(t, w, bias, stride=2, padding=1, output_padding=1)
+
+        if self.model_group is None:
+            return conv(x, b)
+        return _column_parallel(conv, x, b, self.model_group)
 
 
 class ResidualBlock(nn.Module):
@@ -128,3 +165,17 @@ class Dense(nn.Linear):
 def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """LeakyReLU(0.2) (reference ops.py:71-72)."""
     return F.leaky_relu(x, negative_slope=alpha)
+
+
+def set_model_group(module: nn.Module, group) -> set:
+    """Every ``Conv`` / ``ConvTranspose2x`` of ``module`` whose output
+    channels split over ``group``'s ranks (:func:`shards_over_model`)
+    runs column-parallel over ``group``; the others stay as they are.
+    Returns the ``state_dict`` keys of the split weights."""
+    keys = set()
+    for name, m in module.named_modules():
+        if (isinstance(m, (Conv, ConvTranspose2x))
+                and shards_over_model(m.out_channels, group.size())):
+            m.model_group = group
+            keys.add(f"{name}.weight")
+    return keys

@@ -5,10 +5,12 @@ JAX runs one SPMD program over a ``(slice, data, model)`` mesh of
 devices.  The port runs one process a rank, each driving one device (one
 card a rank under NCCL, or the CPU under gloo), joined by a
 ``torch.distributed`` process group; :class:`Mesh` names this process's
-place in it.  Only the data axis is ported: ``n_model > 1`` (the JAX
-package's channel-sharded tensor parallelism, ``parallel/tp.py``, next in
-ROADMAP.md's queue 1) raises,
-and ``n_slice`` only enlarges the world, since NCCL picks its own rings.
+place in it.  The grid is JAX's ``reshape(n_data, n_model)``: rank r has
+data index ``r // n_model`` and model index ``r % n_model``; the ranks of a
+model group share a data index (the same samples, each its channel slice
+of the sharded convs, ``parallel/tp.py``), the ranks of a data group share
+a model index.  ``n_slice`` only enlarges the data axis, since NCCL picks
+its own rings.
 
 * :func:`spawn` starts the ranks (start method ``spawn``, ``file://``
   rendezvous) and runs ``fn(device, *args)`` on each.
@@ -36,22 +38,28 @@ from ..engine.state import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in a data-parallel group.
+    """This process's place in a (data, model) grid of ranks.
 
-    ``rank`` is its index in ``group`` (None when the process is not a
-    member: :func:`make_mesh` over fewer ranks than the world); ``group``
-    is None for a world of one process, where every collective is the
-    identity."""
+    ``rank`` is its data index, its index in ``group``, the data group of
+    the ranks with its model index (None when the process is not a member:
+    :func:`make_mesh` over fewer ranks than the world); ``group`` is None
+    for a world of one process and for a data axis of one rank beside a
+    model axis, where every collective is the identity.  ``model_rank`` is
+    its index in ``model_group``, the ranks with its data index;
+    ``model_group`` is None when ``n_model`` is 1."""
 
     n_data: int
     n_slice: int
     rank: Optional[int]
     device: torch.device
     group: Optional[Any]
+    n_model: int = 1
+    model_rank: Optional[int] = 0
+    model_group: Optional[Any] = None
 
     @property
     def size(self) -> int:
-        """The number of ranks the batch (or the rows) is split over."""
+        """The number of data ranks the batch (or the rows) is split over."""
         return self.n_data * self.n_slice
 
     @property
@@ -133,16 +141,14 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     """The calling rank's :class:`Mesh` over the ranks of the default
     process group (a world of one when none is initialized).
 
-    ``n_data=None`` (or <= 0) uses every rank on the data axis; ``devices``,
-    one a rank, sets how many are visible (default: the world size).  A
-    mesh over fewer ranks than the world is a new group of the first
-    ranks (every rank must call this alike); the others get a mesh with
-    ``rank`` None.  ``device`` is this rank's device (default: the card,
-    ``engine.state.resolve_device``)."""
-    if n_model > 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: tensor parallelism is not ported yet (ROADMAP.md, "
-            "queue 1: parallel/tp.py)")
+    ``n_data=None`` (or <= 0) uses every rank left by ``n_model`` on the
+    data axis; ``devices``, one a rank, sets how many are visible (default:
+    the world size).  A mesh over fewer ranks than the world is built of
+    new groups of the first ranks; the others get a mesh with ``rank`` and
+    ``model_rank`` None.  Every rank must call this alike: with
+    ``n_model > 1`` it creates every data group and then every model group,
+    in that order, as ``dist.new_group`` needs.  ``device`` is this rank's
+    device (default: the card, ``engine.state.resolve_device``)."""
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
@@ -160,11 +166,21 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
                          else devices[rank])
     if not initialized:
         return Mesh(n_data, n_slice, 0, dev, None)
-    if use == world:
-        return Mesh(n_data, n_slice, rank, dev, dist.group.WORLD)
-    group = dist.new_group(list(range(use)))
-    return Mesh(n_data, n_slice, rank if rank < use else None, dev,
-                group if rank < use else None)
+    if n_model == 1:
+        if use == world:
+            return Mesh(n_data, n_slice, rank, dev, dist.group.WORLD)
+        group = dist.new_group(list(range(use)))
+        return Mesh(n_data, n_slice, rank if rank < use else None, dev,
+                    group if rank < use else None)
+    n_rows = n_data * n_slice
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_rows)])
+                   if n_rows > 1 else None for m in range(n_model)]
+    model_groups = [dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+                    for d in range(n_rows)]
+    if rank >= use:
+        return Mesh(n_data, n_slice, None, dev, None, n_model, None, None)
+    d, m = divmod(rank, n_model)
+    return Mesh(n_data, n_slice, d, dev, data_groups[m], n_model, m, model_groups[d])
 
 
 def shard_batch(mesh: Mesh, *arrays):
@@ -203,13 +219,17 @@ def _map_tensors(fn: Callable, tree):
 
 def replicate_state(mesh: Mesh, state):
     """``state`` (a train state, a dict of tensors, a qtail: any tree of
-    tensors) on the mesh's device with every tensor broadcast from rank 0,
-    so the ranks hold the same values.  Every rank must pass a tree of the
-    same structure and shapes; leaves that are not tensors are kept."""
+    tensors) on the mesh's device with every tensor broadcast from rank 0
+    of the grid, so the ranks hold the same values.  Every rank must pass
+    a tree of the same structure and shapes; leaves that are not tensors
+    are kept."""
     def bcast(t):
         t = t.to(mesh.device, copy=True)
-        if mesh.group is not None:
-            dist.broadcast(t, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+        # over the data group from data index 0, then over the model group
+        # from model index 0: every rank ends with the grid's rank 0 values
+        for group in (mesh.group, mesh.model_group):
+            if group is not None:
+                dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
         return t
 
     return _map_tensors(bcast, state)

@@ -162,7 +162,18 @@ def _train_state_files(state, epoch: int):
 _ASYNC_SAVE: Dict[str, Any] = {"thread": None, "error": None}
 
 
-def save_train_state(output_dir: str, state, epoch: int, async_save: bool = False) -> None:
+def _grid_barrier(mesh) -> None:
+    """Every rank of the grid waits for its rank 0: the model groups' ranks
+    wait for their model rank 0, then each data group for its data rank 0."""
+    import torch.distributed as dist
+
+    for group in (mesh.model_group, mesh.group):
+        if group is not None:
+            dist.barrier(group=group)
+
+
+def save_train_state(output_dir: str, state, epoch: int, async_save: bool = False,
+                     mesh=None) -> None:
     """Write the generator / discriminator checkpoint pair of an
     ``engine.state.TrainState``: both files to tmp names first, then both
     renamed, so a crash never publishes a new G beside a stale D.
@@ -170,7 +181,23 @@ def save_train_state(output_dir: str, state, epoch: int, async_save: bool = Fals
     The state is copied to the host before this returns.  ``async_save``
     writes the files in a background thread; a pending save is joined
     before the next one starts, and :func:`wait_for_async_save` joins it
-    and raises what its writing raised."""
+    and raises what its writing raised.
+
+    A tensor-parallel shard (``parallel.tp``) needs its ``mesh``, and
+    every rank of the grid calls this: the full tensors are gathered and
+    rank 0 of the grid writes the pair a full state writes; without
+    ``async_save`` every rank returns once the pair is written."""
+    if state.model_shards is not None:
+        from ..parallel.tp import gather_state_tp
+
+        if mesh is None:
+            raise ValueError("saving a tensor-parallel shard needs its mesh")
+        state = gather_state_tp(mesh, state)
+        if mesh.rank == 0 and mesh.model_rank == 0:
+            save_train_state(output_dir, state, epoch, async_save)
+        if not async_save:
+            _grid_barrier(mesh)
+        return
     wait_for_async_save()
     (g_flat, g_meta), (d_flat, d_meta) = _train_state_files(state, epoch)
     gp, dp = generator_ckpt_path(output_dir), discriminator_ckpt_path(output_dir)
@@ -233,11 +260,23 @@ def _load_opt(tree: Dict[str, Any], template, from_jax, what: str,
 
 
 def load_train_state(output_dir: str, state, g_path: Optional[str] = None,
-                     d_path: Optional[str] = None):
+                     d_path: Optional[str] = None, mesh=None):
     """Returns ``(state, epoch)``: ``state`` (an ``engine.state.TrainState``
     used as the template for keys, shapes and the device) with everything
     restored from the checkpoint pair.  Raises on a missing leaf, a shape
-    mismatch or a torn pair (the two files at different epochs)."""
+    mismatch or a torn pair (the two files at different epochs).
+
+    Into a tensor-parallel shard (``parallel.tp``, with its ``mesh``;
+    every rank of the grid calls this) the full pair loads as this rank's
+    slices."""
+    if state.model_shards is not None:
+        from ..parallel.tp import gather_state_tp, shard_state_tp
+
+        if mesh is None:
+            raise ValueError("loading into a tensor-parallel shard needs its mesh")
+        full, epoch = load_train_state(output_dir, gather_state_tp(mesh, state),
+                                       g_path, d_path)
+        return shard_state_tp(mesh, full), epoch
     g_flat, g_meta = load_flat(g_path or generator_ckpt_path(output_dir))
     d_flat, d_meta = load_flat(d_path or discriminator_ckpt_path(output_dir))
     g_epoch = int(g_meta.get("epoch", 0))

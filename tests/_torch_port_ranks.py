@@ -1,5 +1,5 @@
 """Rank bodies of the port's multi-process CPU tests
-(tests/test_torch_port_{spatial,dp}.py).
+(tests/test_torch_port_{spatial,dp,tp}.py).
 
 ``tecogan_tpu_torch.parallel.spawn`` runs each function in every rank of
 a gloo group (one thread a rank) and pickles it by its import path, so
@@ -22,9 +22,12 @@ from tecogan_tpu_torch.engine.state import model_defs, state_from_params, train_
 from tecogan_tpu_torch.parallel import (build_dp_inference, build_dp_multi_train_step,
                                         build_dp_quantized_inference, build_dp_train_step,
                                         build_spatial_clip_inference,
-                                        build_spatial_fused_clip_inference, make_mesh,
-                                        replicate_state, shard_batch, shard_multi_batch)
+                                        build_spatial_fused_clip_inference,
+                                        build_tp_train_step, gather_state_tp, make_mesh,
+                                        replicate_state, shard_batch, shard_multi_batch,
+                                        shard_state_tp, state_shardings)
 from tecogan_tpu_torch.parallel.collectives import all_gather_cat, halo_rows
+from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from tecogan_tpu_torch.utils.convert import (discriminator_params_to_jax,
                                              generator_params_to_jax,
                                              generator_state_dict_from_jax, qtail_from_jax)
@@ -166,3 +169,61 @@ def single_serving(cfg: TecoConfig, params, clips: np.ndarray, qtail) -> tuple:
         bf16.append(infer(model, one))
         int8.append(infer_q(model, qtail, one))
     return torch.cat(bf16).numpy(), torch.cat(int8).numpy()
+
+
+def state_arrays(state) -> dict:
+    """Every tensor of a train state by ``<field>/<key>`` (``mu_g``,
+    ``nu_d``, ...), as numpy arrays in the port's layout."""
+    res = {}
+    for name, sd in (("params_g", state.params_g), ("params_d", state.params_d),
+                     ("batch_stats_d", state.batch_stats_d),
+                     ("mu_g", state.opt_g.mu), ("nu_g", state.opt_g.nu),
+                     ("mu_d", state.opt_d.mu), ("nu_d", state.opt_d.nu)):
+        for k, v in sd.items():
+            res[f"{name}/{k}"] = v.detach().cpu().numpy()
+    return res
+
+
+def _shard_dims(mesh, state) -> dict:
+    """``state_shardings`` flat as :func:`state_arrays`: -1 for replicated."""
+    dims = state_shardings(mesh, state)
+    res = {}
+    for name, sd in (("params_g", dims.params_g), ("params_d", dims.params_d),
+                     ("batch_stats_d", dims.batch_stats_d), ("mu_g", dims.opt_g.mu),
+                     ("nu_g", dims.opt_g.nu), ("mu_d", dims.opt_d.mu),
+                     ("nu_d", dims.opt_d.nu)):
+        for k, v in sd.items():
+            res[f"dim/{name}/{k}"] = np.int64(-1 if v is None else v)
+    return res
+
+
+def tp_checks(device, out: str, cases: dict, weights) -> None:
+    """Each of ``cases`` ({name: (n_data, n_model, cfg, lr, hr, steps)}, the
+    global batch) through the TP step from ``weights`` on the grid's first
+    ranks (the others sit it out): the metrics of every step, the gathered
+    full state after each step, this rank's shard after the last and the
+    sharded dims; after the last step the shard saved as a ``.ckpt`` pair
+    under ``out/ckpt_<name>`` and loaded back into the shard."""
+    for name, (n_data, n_model, cfg, lr_np, hr_np, steps) in cases.items():
+        mesh = make_mesh(n_data, n_model, device=device)
+        if not mesh.member:
+            continue
+        res = {"grid": np.array([mesh.rank, mesh.model_rank, mesh.n_model, mesh.size])}
+        state = shard_state_tp(mesh, replicate_state(
+            mesh, state_from_params(cfg, *weights, device=device)))
+        res.update(_shard_dims(mesh, state))
+        step = build_tp_train_step(cfg, mesh)
+        lr, hr = shard_batch(mesh, lr_np, hr_np)
+        for i in range(steps):
+            state, metrics, gen_out = step(state, lr, hr)
+            res.update({f"m{i}/{k}": v for k, v in metrics.items()})
+            res.update({f"s{i}/{k}": v for k, v in
+                        state_arrays(gather_state_tp(mesh, state)).items()})
+        res["gen_out"] = gen_out
+        res.update({f"shard/{k}": v for k, v in state_arrays(state).items()})
+        ckpt = os.path.join(out, f"ckpt_{name}")
+        save_train_state(ckpt, state, epoch=steps, mesh=mesh)
+        loaded, epoch = load_train_state(ckpt, state, mesh=mesh)
+        res["loaded_epoch"] = np.int64(epoch)
+        res.update({f"loaded/{k}": v for k, v in state_arrays(loaded).items()})
+        _save(out, name, res)

@@ -266,9 +266,8 @@ def test_dp_serving_is_each_streams_single_device_clip(run):
 
 def test_make_mesh_keeps_the_jax_checks():
     """In a world of one process: the JAX package's shape checks and error
-    text (tecogan_tpu/parallel/mesh.py:28-56), n_model > 1 refused with the
-    ROADMAP entry named, and a mesh of one rank whose collectives are the
-    identity."""
+    text (tecogan_tpu/parallel/mesh.py:28-56), the model axis counted in
+    them, and a mesh of one rank whose collectives are the identity."""
     mesh = make_mesh(device="cpu")
     assert (mesh.size, mesh.rank, mesh.group, mesh.device.type) == (1, 0, None, "cpu")
     with pytest.raises(ValueError, match="mesh 1x2x1 needs 2 devices, only 1 visible"):
@@ -277,7 +276,7 @@ def test_make_mesh_keeps_the_jax_checks():
         make_mesh(2, 1, devices=["cpu", "cpu"], n_slice=2)
     with pytest.raises(ValueError, match="mesh of 2 ranks in a world of 1 processes"):
         make_mesh(2, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1: parallel/tp.py"):
+    with pytest.raises(ValueError, match="mesh 1x1x2 needs 2 devices, only 1 visible"):
         make_mesh(1, 2, device="cpu")
     x = np.arange(12, dtype=np.float32).reshape(4, 3)
     np.testing.assert_array_equal(shard_batch(mesh, x).numpy(), x)

@@ -16,7 +16,7 @@ paper's config.  Phases:
 2. the kernels' build time;
 3. the ``conv_out_s2d`` kernel against its plain PyTorch version (fp32,
    TF32 off) on the same bf16 inputs and the bf16-rounded weights the
-   kernel computes with, at three shapes; at the main path's shape its
+   kernel computes with, at four shapes; at the main path's shape its
    device time (a CUDA graph of back-to-back launches; the wrapper's
    back-to-back time beside it) against its bound, the plain version's
    time and the bf16 library chain's (``F.conv2d`` + sigmoid +
@@ -32,7 +32,7 @@ paper's config.  Phases:
    control, the same route with the warp's feedback replaced by zeros,
    must score below the bar, or the phase could not see the warp;
 6. the ``warp_s2d`` kernel against its plain version (fp32) on the same
-   bf16 carry at three shapes; at the main shape its device time (as in
+   bf16 carry at four shapes; at the main shape its device time (as in
    3) against its bound, the plain version's time and
    ``F.grid_sample``'s alone;
 7. chunked inference at full width: a uint8 clip of 40 frames in windows
@@ -150,9 +150,20 @@ paper's config.  Phases:
    config (bf16): 3 steps, ms a step, peak memory, and a tiny fp32 config
    against the CPU within 1e-4; (f) ``--spatial_shards 2`` and
    ``--data_axis 2`` through ``cli.main.main``, clamped to the one card
-   with the JAX package's warning.
+   with the JAX package's warning;
+16. exported serving: the window programs served from a fresh process
+   bit-equal to the live chunked loop, the reference-checkpoint converter,
+   ``tools/adapt_clip.py`` and CLI train steps with the surrogate VGG-19;
+17. the measurement programs (``tecogan_tpu_torch/tools/bench*.py``, the
+   JAX repo's ``bench.py`` and ``tools/bench_*.py``) through their
+   ``main(argv)`` at the JAX tools' defaults: every record finite, each
+   program's launches of the four hand kernels the count its routes
+   imply, no ``error`` line at batches 4-32, and each stream of a 4-stream
+   clip against it served alone above 40 dB, on weights scaled so that
+   the control, every stream fed stream 0's carry, scores below 40 dB
+   (phases 3 and 6 hold both kernels to plain at these B = 4 shapes).
 
-Phases 9-11, 13a, c-e, and 15's train steps (DP and TP) run no hand kernel: training runs cuDNN convs and
+Phases 9-11, 13a, c-e, 15's train steps (DP and TP) and 17's train programs run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 kernels' times are a frame's: the
 sum over the frame's launches at each layer shape (37 and 2).
@@ -185,12 +196,14 @@ import torch.nn.functional as F
 
 FEAT_SHAPES = [(1, 1080, 1920, 64),  # the main path: LR 270 x 480
                (2, 540, 960, 64),    # LR H = 135, odd
-               (1, 148, 212, 64)]    # LR 37 x 53, H and W odd
+               (1, 148, 212, 64),    # LR 37 x 53, H and W odd
+               (4, 1080, 1920, 64)]  # bench_serving's four streams (phase 17)
 MAX_ERR, MEAN_ERR = 8e-3, 1e-3       # two bf16 ulps at 1.0; mean bar
 # (B, H, W) of the LR carry, and the range of prev_lr
 WARP_SHAPES = [((1, 270, 480), 0.0, 1.0),    # the main path, served range
                ((2, 135, 240), 0.0, 1.0),
-               ((1, 37, 53), -0.5, 0.5)]     # coordinates reach the edges
+               ((1, 37, 53), -0.5, 0.5),     # coordinates reach the edges
+               ((4, 270, 480), 0.0, 1.0)]    # bench_serving's four streams (phase 17)
 # one bf16 ulp in [0.5, 1), where deprocess puts every value; mean bar
 WARP_MAX_ERR, WARP_MEAN_ERR = 4e-3, 1e-3
 CLIP = (1, 8, 270, 480, 3)
@@ -2267,6 +2280,157 @@ def cli_vgg_phase(dev, smi, tmp: str) -> None:
           f"{digest} = the JAX surrogate's | {smi}", flush=True)
 
 
+BENCH_STREAMS = 4                    # phase 17: the B-stream agreement's batch
+# phase 17's weights for the B-stream agreement: the seed-0 draw at torch's
+# init scale ignores its feedback (a stream fed another's carry scores
+# inf dB against it alone), and x2.5 (phase 5's, at 2 resblocks) clamps most
+# of the 16-resblock output; x2 (exact in bf16) leaves a few percent
+# clamped and the crossed-carry control far below the bar
+STREAMS_GAIN = 2.0
+
+
+def _finite_records(records: list, what: str) -> None:
+    for rec in records:
+        bad = [k for k, v in rec.items() if isinstance(v, float) and not np.isfinite(v)]
+        require(not bad, f"[17] {what}: non-finite {bad} in {rec}")
+
+
+def _clip_launches(clips: list) -> dict:
+    """The hand kernels' launches of fused clips, ``(frames, runs, int8)``
+    at a time: one ``conv_out_s2d`` a frame, one ``warp_s2d`` a frame after
+    the first, whatever the batch; an int8 clip adds 37 ``int8_conv3x3``
+    and 2 ``int8_up2x`` a frame."""
+    out = dict.fromkeys(("conv_out_s2d", "warp_s2d", "int8_conv3x3", "int8_up2x"), 0)
+    for t, n, int8 in clips:
+        out["conv_out_s2d"] += t * n
+        out["warp_s2d"] += (t - 1) * n
+        if int8:
+            out["int8_conv3x3"] += 37 * t * n
+            out["int8_up2x"] += 2 * t * n
+    return out
+
+
+def _crossed_carry_clip(model, clip: torch.Tensor) -> torch.Tensor:
+    """Phase 17's control: the fused route with every stream's feedback
+    warped from stream 0's carry, what a kernel that read another stream's
+    carry would serve."""
+    from tecogan_tpu_torch.engine.fused import (conv_out_params, conv_out_s2d,
+                                                fused_first_frame_s2d, fused_first_layer,
+                                                s2d_to_frame, warp_s2d_feedback)
+
+    with torch.inference_mode():
+        carry = fused_first_frame_s2d(model, clip[:, 0])
+        frames = [s2d_to_frame(carry).float()]
+        for t in range(1, clip.shape[1]):
+            crossed = carry[:1].expand_as(carry).contiguous()
+            feedback = warp_s2d_feedback(crossed, clip[:, t - 1].contiguous())
+            net = fused_first_layer(model, clip[:, t], feedback)
+            carry = conv_out_s2d(model.tail_features(net), *conv_out_params(model))
+            frames.append(s2d_to_frame(carry).float())
+    return torch.stack(frames, dim=1)
+
+
+def bench_phase(dev, smi) -> dict:
+    """Phase 17: the five measurement programs (``tecogan_tpu_torch/tools/
+    bench*.py``) in-process through their ``main(argv)`` at the JAX tools'
+    defaults, with torch's default TF32 switches (``bench_train`` turns
+    TF32 off for its fp32 modes itself).  Each prints its records (the
+    card's name and power limit in each); every value finite, each
+    program's hand-kernel launches the count its routes imply (the warm-up
+    run and the timed ones; ``prepare``'s calibration 8 / 7), no ``error``
+    line at batches 4-32.  Then the B-stream agreement, on the benchmark's
+    model with its weights x``STREAMS_GAIN`` and a clip in [0,
+    ``CLIP_RANGE``) (phase 5's reasons): each stream of a (4, 8, 270, 480,
+    3) clip against the same stream served alone, PSNR above the 40 dB bar
+    (bit-equality printed), one launch a frame for the batch; and the
+    control, every stream fed stream 0's carry, below the bar on every
+    other stream, or the check could not see a crossed carry.  Returns each
+    program's launches."""
+    from tecogan_tpu_torch.engine.inference import build_clip_inference
+    from tecogan_tpu_torch.tools import (bench, bench_quant, bench_serving, bench_train,
+                                         bench_train_scaling)
+
+    for key in ("BENCH_FRAMES", "BENCH_REPS", "BENCH_INT8", "BENCH_TRAIN_REPS"):
+        os.environ.pop(key, None)  # the programs' defaults, which the counts below assume
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    torch.backends.cudnn.deterministic = False
+    runs = bench.REPS + 1  # the warm-up and the timed runs
+    # a clip of each route, and prepare's calibration between them
+    one_clip = _clip_launches([(bench.FRAMES, runs, False), (bench.CALIB_FRAMES, 1, False),
+                               (bench.FRAMES, runs, True)])
+    programs = (
+        ("bench", bench.main, one_clip),
+        ("bench_serving", bench_serving.main, _clip_launches(
+            [(bench_serving.stream_frames(bench.FRAMES, b), runs, False)
+             for b in bench_serving.BATCHES])),
+        ("bench_quant", bench_quant.main, one_clip),
+        ("bench_train", bench_train.main, _clip_launches([])),
+        ("bench_train_scaling", bench_train_scaling.main, _clip_launches([])),
+    )
+    launches, records = {}, {}
+    try:
+        for name, main_fn, want in programs:
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = main_fn([])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[name] = _kernel_counts()
+            records[name] = out if isinstance(out, list) else [out]
+            _finite_records(records[name], name)
+            print(f"[17] {name}: {len(records[name])} record(s) in {secs:.1f} s | launches "
+                  f"{launches[name]} | {smi}", flush=True)
+            require(launches[name] == want,
+                    f"[17] {name} launched {launches[name]}, its routes imply {want}")
+            torch.cuda.empty_cache()
+        errors = [r for r in records["bench_train_scaling"] if "error" in r]
+        require(not errors and [r["batch"] for r in records["bench_train_scaling"]]
+                == list(bench_train_scaling.BATCHES),
+                f"[17] bench_train_scaling: {records['bench_train_scaling']}")
+        require(all(r["card"] == smi for rs in records.values() for r in rs),
+                "[17] a record names another card")
+
+        cfg = bench.bench_config()
+        model, _ = bench.serving_model(cfg, dev)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("weight"):
+                    p.mul_(STREAMS_GAIN)
+        clip = bench.lr_clip(np.random.default_rng(17), (BENCH_STREAMS, 8, *CLIP[2:]), dev)
+        clip = clip * CLIP_RANGE
+        _reset_counts()
+        agree = bench_serving.streams_alone(cfg, model, clip)
+        got = _kernel_counts()
+        want = _clip_launches([(8, 1, False), (8, BENCH_STREAMS, False)])
+        infer = build_clip_inference(cfg)
+        crossed = _crossed_carry_clip(model, clip)
+        control_db = [psnr(crossed[b:b + 1], infer(model, clip[b:b + 1]))
+                      for b in range(1, BENCH_STREAMS)]
+        out = infer(model, clip[:1])
+        clamped = float(((out == 0) | (out == 1)).float().mean())
+        print(f"[17] each stream of a ({BENCH_STREAMS}, 8, 270, 480, 3) clip against it "
+              f"served alone, weights x{STREAMS_GAIN}, clip in [0, {CLIP_RANGE}): "
+              f"bit-equal {agree['bit_equal']}, max_abs {agree['max_abs']:.3e}, lowest "
+              f"PSNR {agree['min_psnr_db']:.2f} dB (bar {PSNR_BAR_DB} dB); control, every "
+              f"stream fed stream 0's carry: streams 1-{BENCH_STREAMS - 1} at "
+              f"{', '.join(f'{db:.2f}' for db in control_db)} dB | {clamped:.2%} of "
+              f"stream 0's output clamped | launches {got} | {smi}", flush=True)
+        require(agree["min_psnr_db"] > PSNR_BAR_DB,
+                f"[17] a stream of the batch differs from it alone: {agree}")
+        require(max(control_db) < PSNR_BAR_DB,
+                f"[17] crossed-carry control scores {control_db} dB: the check cannot "
+                "see a stream fed another's carry")
+        require(got == want, f"[17] the B-stream check launched {got}, expected {want}")
+        del model, clip, crossed, out
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2555,6 +2719,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     multi = multi_phase(dev, smi)
     exported = export_phase(dev, smi)
+    benched = bench_phase(dev, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2562,6 +2727,7 @@ def main() -> None:
     for rec in records:  # phase 15's paths: each kernel's launches a rank
         rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
         rec["launches_exported"] = {path: counts[rec["name"]] for path, counts in exported.items()}
+        rec["launches_bench"] = {prog: counts[rec["name"]] for prog, counts in benched.items()}
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..engine.state import resolve_device
+
 _SENTINEL = object()
 
 
@@ -47,13 +49,17 @@ def threaded_batches(batch_iter: Iterator, depth: int = 2) -> Iterator:
         yield item
 
 
-def device_prefetch(batch_iter: Iterator, size: int = 2, device="cpu") -> Iterator:
+def device_prefetch(batch_iter: Iterator, size: int = 2, device=None) -> Iterator:
     """Tuples of arrays or tensors -> the same tuples as tensors on
-    ``device``, copied ``size`` items ahead of consumption.  On a CUDA
-    device the copies run on a side stream from pinned memory; the
-    consumer's current stream waits for an item's copy when the item is
-    handed over."""
-    dev = torch.device(device)
+    ``device`` (default: the card, see ``engine.state.resolve_device``;
+    it raises here when no GPU is visible), copied ``size`` items ahead of
+    consumption.  On a CUDA device the copies run on a side stream from
+    pinned memory; the consumer's current stream waits for an item's copy
+    when the item is handed over."""
+    return _prefetch(batch_iter, size, resolve_device(device))
+
+
+def _prefetch(batch_iter: Iterator, size: int, dev: torch.device) -> Iterator:
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def put(item):
@@ -86,9 +92,10 @@ def device_prefetch(batch_iter: Iterator, size: int = 2, device="cpu") -> Iterat
 
 
 def make_input_pipeline(batch_iter: Iterator, queue_threads: int = 8, prefetch: int = 2,
-                        device="cpu") -> Iterator:
-    """Host-side threading, then device prefetch (``prefetch`` items ahead;
-    0 hands the host items over unchanged)."""
+                        device=None) -> Iterator:
+    """Host-side threading, then device prefetch (``prefetch`` items ahead
+    onto ``device``, as :func:`device_prefetch`; 0 hands the host items
+    over unchanged)."""
     it = batch_iter
     if queue_threads > 0:
         it = threaded_batches(it, depth=max(prefetch, 1))

@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TecoConfig
 from ..ops.image import deprocess, preprocess
 from ..ops.resize import upscale_four
-from ..ops.warp import grid_sample
+from ..ops.warp import grid_sample, round_through_half
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -83,7 +83,7 @@ def flows_to_grids(gen_flow: torch.Tensor, parity_half: bool) -> torch.Tensor:
     B, Tm1, _, H4, W4 = gen_flow.shape
     grids = gen_flow.reshape(B, Tm1, H4, W4, 2)
     if parity_half:
-        grids = grids.to(torch.float16).to(torch.float32)
+        grids = round_through_half(grids)
     return grids
 
 
@@ -230,7 +230,7 @@ def assemble_triplets(r_inputs: torch.Tensor, r_targets: torch.Tensor,
 
     real_warp = _warp_nchw(t_tgt, t_vel).reshape(t_batch, 9, H4, W4)
     # T_vel.half() (train.py:187)
-    fake_vel = t_vel.to(torch.float16).to(torch.float32) if cfg.bug_parity else t_vel
+    fake_vel = round_through_half(t_vel) if cfg.bug_parity else t_vel
     fake_warp = _warp_nchw(t_gen, fake_vel).reshape(t_batch, 9, H4, W4)
 
     if not cfg.Dt_mergeDs:

@@ -23,6 +23,22 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+def round_through_half(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to float16 (to nearest, ties to even) and back to
+    float32: the reference's ``.half()``, JAX's ``astype(float16)``.
+    torch takes float64 to float16 through a float32 rounded to nearest,
+    which rounds twice and can land on the wrong side of a float16
+    midpoint; a float64 ``x`` goes to float32 rounded to odd first, after
+    which the one rounding to float16 is exact."""
+    if x.dtype == torch.float64:
+        r = x.float()
+        inexact = r.double() != x
+        even = (r.view(torch.int32) & 1) == 0
+        toward = torch.where(x > r.double(), torch.inf, -torch.inf).float()
+        x = torch.where(inexact & even, torch.nextafter(r, toward), r)
+    return x.to(torch.float16).to(torch.float32)
+
+
 def pseudo_flow_nchw(prev_lr_nchw: torch.Tensor,
                      parity_half: bool = False) -> torch.Tensor:
     """Bilinear 4x of ``prev_lr * 4``, channels 0:2, viewed raw (a
@@ -35,5 +51,5 @@ def pseudo_flow_nchw(prev_lr_nchw: torch.Tensor,
     # the reference's .view of the contiguous NCHW upsample
     grid = flow.reshape(B, 4 * H, 4 * W, 2)
     if parity_half:
-        grid = grid.to(torch.float16).to(torch.float32)
+        grid = round_through_half(grid)
     return grid

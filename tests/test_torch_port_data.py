@@ -272,6 +272,22 @@ def test_device_prefetch_on_the_cpu_yields_the_same_items(size, threads):
             assert isinstance(a, torch.Tensor) and a.device.type == "cpu"
 
 
+@pytest.mark.parametrize("call", ["device_prefetch", "make_input_pipeline"])
+def test_prefetch_defaults_to_the_card(monkeypatch, call):
+    """No device named: the card, as every entry point; without one it
+    raises when called, before any item is drawn."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    drawn = []
+
+    def items():
+        drawn.append(1)
+        yield (np.zeros(2, np.float32),)
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        getattr(prefetch, call)(items())
+    assert not drawn
+
+
 def test_summary_lines_have_the_jax_keys(tmp_path):
     metrics = {"gen_loss": torch.tensor(1.25), "d_loss": np.float32(0.5),
                "learning_rate": 1e-4, "label": "skipped"}

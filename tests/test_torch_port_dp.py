@@ -18,10 +18,15 @@ writes its arrays under ``tmp_path``.  Bars:
   off, against the port's single-process step on the global batch: params
   and BN statistics as above, first moments within ``MOMENT_RTOL`` of each
   leaf's largest, the metrics within ``METRIC_RTOL``.  JAX is not the
-  reference there: at B = 4 the two packages' first moments differ by up
-  to 2e-3 of a leaf's largest element, while the port's fp32 step sits
-  within 6e-6 of a float64 run of the port's step (at B = 2 the packages
-  agree to 2e-5);
+  reference there: at B = 4 a few pre-activations lie within f32 rounding
+  of a ReLU's or leaky ReLU's kink, each package's f32 step rounds them to
+  its own side, and one such element moves a gradient by a finite step
+  (up to 4e-2 of a D leaf; tests/test_torch_port_d_grad_f64.py holds the
+  port's f32 D gradient to JAX's float64 one on each kink's float64
+  side).  JAX has no float64 train step to hold the DP step to (its dtype
+  comes from ``cfg.precision`` alone), so the reference is the port's
+  single-process step on the same batch (at B = 2 the packages agree to
+  2e-5);
 * every rank holds the same state bit for bit (one D-balance decision);
 * the gate: a threshold between the global ``t_balance`` and the larger
   rank-local one, which a rank-local gate would split on, against the

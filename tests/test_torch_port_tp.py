@@ -27,9 +27,11 @@ Bars:
   a first Adam step moves a param by about ``lr * sign(g)`` whatever the
   gradient's size, so the params alone would pass a gradient off by a
   factor, and the relative bar on the moments is what catches one;
-* against JAX at B = 2 (the packages' fp32 gradients part at B = 4,
-  ROADMAP queue 3, item 6): the losses within ``LOSS_RTOL``, G's params and
-  first moments within ``LEAF_ATOL``;
+* against JAX at B = 2 (at B = 4 the packages' fp32 gradients part where
+  a pre-activation lies within f32 rounding of an activation's kink, each
+  package rounding it to its own side, tests/test_torch_port_d_grad_f64.py,
+  and JAX has no float64 step to hold TP to): the losses within
+  ``LOSS_RTOL``, G's params and first moments within ``LEAF_ATOL``;
 * every replicated leaf the same on every rank of a model group, the ranks
   of a data group holding the same shard, each shard the rank's slice of
   the gathered state;

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``tecogan_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``tecogan_tpu_torch/csrc`` (one
 ``nvcc`` a source, started together) and drives the serving paths a user
@@ -21,10 +21,17 @@ paper's config.  Phases:
    back-to-back time beside it) against its bound, the plain version's
    time and the bf16 library chain's (``F.conv2d`` + sigmoid +
    ``pixel_unshuffle``); then the fp32 route's f32 kernel against the
-   plain version in f32 at two shapes, and its time;
+   plain version in f32 at FEAT_SHAPES 0, 2 and 3, and at the main shape
+   its time beside its bound, the plain version's, the f32 library
+   chain's with TF32 off and, given ``--parent DIR`` (an earlier tree of
+   the repo, e.g. unpacked with ``git archive`` into the git-ignored
+   ``chip_tree/``), the earlier tree's f32 kernel's, built beside the
+   kernels in phase 2 and held to the same bars;
 4. the full-width generator (16 resblocks, bf16) on a (1, 8, 270, 480, 3)
    clip: output shape, range, both kernels' launch counts, fps, TFLOP/s
-   and MFU against the H100's dense bf16 peak;
+   and MFU against the H100's dense bf16 peak; then the fp32 fused route
+   (TF32 off, the f32 kernel's path) on the same weights and clip: its
+   launch counts, fps and the f32 kernel's share of a frame;
 5. the fused route with the kernels (bf16) against the exact route (fp32)
    on the same weights at a small width: last-frame PSNR above the bar.
    As in the port's tests, the conv kernels are scaled by 2.5 and the LR
@@ -183,6 +190,7 @@ import importlib.util
 import io
 import json
 import os
+import pathlib
 import re
 import shutil
 import statistics
@@ -2431,7 +2439,90 @@ def bench_phase(dev, smi) -> dict:
     return launches
 
 
-def main() -> None:
+def conv_f32_phase(dev, smi, gen, weight, bias, earlier=None) -> dict:
+    """Phase 3's second half: the fp32 route's kernel (f32 features, the f32
+    weights as they are) against the plain version in f32 at FEAT_SHAPES
+    0, 2 and 3: they differ in summation order, then one bf16 rounding.
+    At the main shape its device time (a CUDA graph of 50 launches) beside
+    its bound, the plain version's time (the chain and the cast to bf16),
+    the f32 library chain's with TF32 off, and, where ``earlier`` (the
+    library built from an earlier tree's ``conv_out_s2d.cu``) is given,
+    that design's, held to the same bars.  Returns the kernel's record
+    but its launches."""
+    import ctypes
+
+    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
+    from tecogan_tpu_torch.utils.timing import events_ms, graph_ms
+
+    rec = {"name": "conv_out_s2d_f32", "route": "cuda",
+           "source": "tecogan_tpu_torch/csrc/conv_out_s2d.cu",
+           "replaces": "tecogan_tpu/ops/pallas/conv_out_s2d.py:176", "max_abs_err": 0.0}
+    if earlier is not None:
+        earlier.conv_out_s2d_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                                + [ctypes.c_void_p])
+        earlier.conv_out_s2d_launch.restype = ctypes.c_int
+
+    def errors(got, ref):
+        err = (got.float() - ref).abs()
+        return float(err.max()), float(err.mean())
+
+    for shape in (FEAT_SHAPES[0], FEAT_SHAPES[2], FEAT_SHAPES[3]):
+        feat32 = torch.rand(shape, generator=gen, device=dev)
+        ref = kmod.conv_out_s2d_reference(feat32, weight, bias)
+        got = kmod.conv_out_s2d_cuda(feat32, weight, bias)
+        torch.cuda.synchronize()
+        require(tuple(got.shape) == tuple(ref.shape) and got.dtype == torch.bfloat16,
+                f"fp32 kernel {tuple(got.shape)} {got.dtype} at {shape}")
+        mx, mean = errors(got, ref)
+        rec["max_abs_err"] = max(rec["max_abs_err"], mx)
+        line = f"[3] conv_out_s2d fp32 {shape}: max_abs {mx:.3e} mean_abs {mean:.3e}"
+        if shape == FEAT_SHAPES[0]:
+            rec["ms"] = graph_ms(lambda: kmod.conv_out_s2d_cuda(feat32, weight, bias), 50)
+            rec["plain_ms"] = events_ms(lambda: kmod.conv_out_s2d_reference(
+                feat32, weight, bias).to(torch.bfloat16), 20)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False  # the same function as the kernel's
+            try:
+                rec["library_ms"] = events_ms(
+                    lambda: kmod.conv_out_s2d_reference(feat32, weight, bias), 20)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            rec["bound_ms"], rec["bound_by"] = bound(
+                feat32.numel() * 4 + got.numel() * 2, 2.0 * got.numel() * 9 * 64,
+                PEAK_F32_FLOPS)
+            line += (f" | kernel {rec['ms']:.4f} ms (graph), bound {rec['bound_ms']:.4f} ms"
+                     f" ({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%}) | plain fp32"
+                     f" {rec['plain_ms']:.4f} ms | library chain f32, TF32 off"
+                     f" {rec['library_ms']:.4f} ms")
+            if earlier is None:
+                line += " | earlier design: not measured (no --parent tree)"
+            else:
+                old = torch.empty_like(got)
+
+                def launch_earlier():
+                    err = earlier.conv_out_s2d_launch(
+                        feat32.data_ptr(), weight.data_ptr(), bias.data_ptr(), old.data_ptr(),
+                        shape[0], shape[1] // 4, shape[2] // 4, 1,
+                        torch.cuda.current_stream().cuda_stream)
+                    require(err == 0, f"earlier f32 kernel: CUDA error {err}")
+
+                launch_earlier()
+                torch.cuda.synchronize()
+                omx, omean = errors(old, ref)
+                require(omx <= MAX_ERR and omean <= MEAN_ERR,
+                        f"earlier f32 kernel vs plain: max {omx} mean {omean}")
+                rec["earlier_ms"] = graph_ms(launch_earlier, 50)
+                line += (f" | earlier design {rec['earlier_ms']:.4f} ms (graph; max_abs"
+                         f" {omx:.3e})")
+            line += f" | {smi}"
+        print(line, flush=True)
+        require(mx <= MAX_ERR and mean <= MEAN_ERR,
+                f"fp32 kernel vs plain at {shape}: max {mx} mean {mean}")
+        del feat32, ref, got
+    return rec
+
+
+def main(parent=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2446,6 +2537,7 @@ def main() -> None:
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.ops.kernels._build import load as load_source
     from tecogan_tpu_torch.ops.space import depth_to_space
     from tecogan_tpu_torch.ops.warp import pseudo_flow_nchw
     from tecogan_tpu_torch.utils.convert import generator_state_dict_from_jax
@@ -2466,10 +2558,16 @@ def main() -> None:
     print(f"[1] image I/O modules importable: {found}", flush=True)
 
     # -- 2. build: one nvcc a source, started together
+    jobs = {"conv_out_s2d": kmod.build, "warp_s2d": wmod.build, "int8_conv": qmod.build}
+    if parent is not None:  # the earlier f32 design, timed in phase 3
+        jobs["conv_out_s2d (earlier tree)"] = lambda: load_source(
+            pathlib.Path(parent) / "tecogan_tpu_torch" / "csrc" / "conv_out_s2d.cu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        logs = dict(zip(("conv_out_s2d", "warp_s2d", "int8_conv"),
-                        pool.map(lambda m: m.build(), (kmod, wmod, qmod))))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = dict(zip(jobs, pool.map(lambda build: build(), jobs.values())))
+    earlier = None
+    if parent is not None:
+        earlier, logs["conv_out_s2d (earlier tree)"] = logs["conv_out_s2d (earlier tree)"]
     print(f"[2] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -2519,24 +2617,7 @@ def main() -> None:
         require(mx <= MAX_ERR and mean <= MEAN_ERR,
                 f"kernel vs plain at {shape}: max {mx} mean {mean}")
         del feat, feat32, ref, got, err
-    # the fp32 route's kernel: f32 features and weights, against the plain
-    # version in f32 (they differ in summation order, then one bf16 rounding)
-    for shape in (FEAT_SHAPES[0], FEAT_SHAPES[2]):
-        feat32 = torch.rand(shape, generator=gen, device=dev)
-        ref = kmod.conv_out_s2d_reference(feat32, weight, bias)
-        got = kmod.conv_out_s2d_cuda(feat32, weight, bias)
-        torch.cuda.synchronize()
-        err = (got.float() - ref).abs()
-        mx, mean = float(err.max()), float(err.mean())
-        line = f"[3] conv_out_s2d fp32 {shape}: max_abs {mx:.3e} mean_abs {mean:.3e}"
-        if shape == FEAT_SHAPES[0]:
-            ms = graph_ms(lambda: kmod.conv_out_s2d_cuda(feat32, weight, bias), 20)
-            line += f" | kernel {ms:.4f} ms (graph) | {smi}"
-        print(line, flush=True)
-        require(tuple(got.shape) == tuple(ref.shape) and got.dtype == torch.bfloat16
-                and mx <= MAX_ERR and mean <= MEAN_ERR,
-                f"fp32 kernel vs plain at {shape}: max {mx} mean {mean}")
-        del feat32, ref, got, err
+    conv32 = conv_f32_phase(dev, smi, gen, weight, bias, earlier)
 
     # -- 4. the full-width serving path
     cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False,
@@ -2571,6 +2652,36 @@ def main() -> None:
           f"launches conv_out_s2d {launches[0]}, warp_s2d {launches[1]} | {smi}",
           flush=True)
     del out
+
+    # the fp32 fused route (the precision reference, TF32 off) on the same
+    # weights and clip: the f32 kernel's path, and its share of a frame
+    cfg32 = TecoConfig(num_resblock=16, precision="fp32", bug_parity=False, use_pallas=True)
+    model32 = model_defs(cfg32, device=dev)
+    model32.load_state_dict(generator_state_dict_from_jax(params))
+    model32.eval()
+    infer32 = build_clip_inference(cfg32)
+    infer32(model32, clip)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = infer32(model32, clip)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches32 = (kmod.launch_count, wmod.launch_count)
+    require(tuple(out.shape) == (1, T, 1080, 1920, 3) and out.dtype == torch.float32,
+            f"fp32 output {tuple(out.shape)} {out.dtype}")
+    require(bool(torch.isfinite(out).all()), "non-finite fp32 output")
+    require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "fp32 output outside [0, 1]")
+    require(launches32 == (T, T - 1),
+            f"fp32 route: conv_out_s2d / warp_s2d launched {launches32} times for {T} frames")
+    conv32["launches"] = launches32[0]
+    frame_ms = secs * 1e3 / T
+    print(f"[4] 270p->1080p T={T} full width fp32 fused (TF32 off): {T / secs:.3f} fps "
+          f"({secs * 1e3:.3f} ms a clip) | launches conv_out_s2d (f32 kernel) "
+          f"{launches32[0]}, warp_s2d {launches32[1]} | the f32 kernel {conv32['ms']:.4f} ms "
+          f"(phase 3), {conv32['ms'] / frame_ms:.3%} of a frame's {frame_ms:.3f} ms | {smi}",
+          flush=True)
+    del out, model32, infer32
 
     # -- 5. fused (kernels, bf16) vs exact (fp32) on the same scaled weights,
     #       and the same fused route with zero feedback as the control
@@ -2728,6 +2839,9 @@ def main() -> None:
         rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
         rec["launches_exported"] = {path: counts[rec["name"]] for path, counts in exported.items()}
         rec["launches_bench"] = {prog: counts[rec["name"]] for prog, counts in benched.items()}
+    # the fp32 route's kernel: its launches are the fp32 clip's (phase 4);
+    # phases 15-17 serve bf16 and int8
+    records.insert(1, {k: conv32[k] for k in keys + ("earlier_ms",) if k in conv32})
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2738,5 +2852,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-exported":
         serve_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        main(parent=sys.argv[2])
     else:
         main()

@@ -37,9 +37,9 @@
 // from the f32 weights, rounded to bf16.
 //
 // The fp32 route, a precision reference, has a kernel of its own
-// (conv_out_s2d_f32_kernel, at the end): the same function on f32 features
-// and the f32 weights as they are (no rounding to bf16), summed with f32
-// FMAs on the CUDA cores, the result rounded to bf16 once.
+// (conv_out_s2d_f32_kernel, at the end, with its design): the same function
+// on f32 features and the f32 weights as they are (no rounding to bf16),
+// summed with f32 FMAs on the CUDA cores, the result rounded to bf16 once.
 //
 // Tiling: a block of 8 warps owns a strip of TC = 30 LR columns (120 HR
 // columns plus a 1-pixel halo on each side: 122 staged pixels in 8 M
@@ -318,71 +318,220 @@ conv_out_s2d_kernel(const __nv_bfloat16* __restrict__ feat,
 }
 
 // ---- the f32 kernel -----------------------------------------------------------------
-// A block: LR row i, LR columns j0 .. j0 + F_LRC - 1, that is 4 HR rows of
-// F_COLS HR columns, one thread an HR pixel.  Its 6 x F_SW staged HR pixels
-// (a halo of one) pass through shared memory in chunks of F_KC channels,
-// padded to F_PIX floats a pixel so that a quarter warp's float4 reads of 8
-// neighbouring pixels hit distinct banks; the weights sit there as one
-// float4 (c0, c1, c2, 0) a (u, v, k), read by every thread of a warp at once.
-constexpr int F_LRC = 16;                    // LR columns a block
-constexpr int F_COLS = 4 * F_LRC;            // HR columns a block
-constexpr int F_THREADS = 4 * F_COLS;        // one an HR pixel
-constexpr int F_SW = F_COLS + 2;             // staged HR columns
-constexpr int F_KC = 16;                     // channels a chunk
-constexpr int F_PIX = F_KC + 4;              // floats a staged pixel
-constexpr int F_STAGE = 6 * F_SW * F_PIX;    // floats of staged features
-constexpr int F_SMEM = (F_STAGE + 9 * K * 4) * 4;
-static_assert(F_SMEM <= 48 * 1024, "no opt-in shared memory needed");
-static_assert(K % F_KC == 0 && F_COLS % 32 == 0, "whole chunks, one HR row a warp");
+// The fp32 route's kernel: the same function on f32 features and the f32
+// weights as they are, summed with f32 FMAs on the CUDA cores.
+//
+// What bounds it: at 1080p it must read the 530.84 MB of f32 features and
+// write the 12.44 MB result, 543.28 MB: 0.1622 ms at 3.35 TB/s.  Its
+// 3.583 G FMAs take 0.1070 ms at 67 TFLOP/s, under the bytes but not far:
+// the FMA pipe has to be kept busy by a loop that reads shared memory
+// rarely, while the next rows stream in.
+//
+// Tiling: a block of F_G = 4 warps owns a strip of F_TC = 32 LR columns
+// (lane j: LR column j0 + j, its 4 HR columns) and walks down a band of
+// F_BH = 16 LR rows one HR input row at a time, as the bf16 kernel does,
+// through a ring of F_STAGES = 3 whole rows of the strip's 130 staged
+// pixels (a halo of one), filled by cp.async with zero-fill for SAME
+// padding.  A staged row holds all 64 channels, one contiguous run of
+// device memory: stages of half or quarter pixels ran slower.  Warp g sums
+// channels 16g .. 16g + 15: per channel it loads its LR column's 6 staged
+// pixels (4 + halo) and the 27 weights (u, v, c), and does 108 FMAs into
+// 36 rolling accumulators: 3 output rows x 4 HR columns x 3 channels.  So
+// each loaded feature feeds 18 FMAs and each weight 4, and a warp issues
+// 1728 FMAs a row against 204 shared-memory wavefronts (24 float4 feature
+// loads of 4 wavefronts, conflict-free by the swizzle below, and 108
+// broadcast weight loads): 8.5 FMA instructions a wavefront.  Output row e
+// takes input rows e, e + 1, e + 2 (row tap u = t - e); it is complete
+// after row e + 2, when the 4 warps' partial sums meet in shared memory.
+// At the next row warps 0-2 (channel c = g) add them, the bias, take the
+// sigmoid, round to bf16 once and keep 4 values; after the LR row's fourth
+// HR row each writes its 32 contiguous bytes of the LR pixel's 96-byte s2d
+// record in two 16-byte stores.
+//
+// Shared memory: 3 x 33,280 bytes of ring, 6,144 of partial sums and 6,912
+// of weights, 112,896 bytes: 2 blocks an SM (128 registers a thread).  At
+// 1080p the grid is 15 strips x 17 bands = 255 blocks, one wave of 264
+// places; halos re-read 2 of each band's 66 rows and 2 of each strip's 130
+// columns, so the features are fetched 1.047 times (556 MB).
+constexpr int F_TC = 32;                     // LR columns a strip, one a lane
+constexpr int F_BH = 16;                     // LR rows a band
+constexpr int F_G = 4;                       // channel groups, one a warp
+constexpr int F_THREADS = 32 * F_G;
+constexpr int F_SW = 4 * F_TC + 2;           // staged HR pixels a row
+constexpr int F_Q = K / 4;                   // 16-byte chunks a pixel
+constexpr int F_QW = F_Q / F_G;              // chunks a pixel a warp
+constexpr int F_STAGES = 3;                  // ring rows
+constexpr int F_BLOCKS = 2;                  // blocks an SM
+constexpr int F_ROW_FLOATS = F_SW * K;
+constexpr int F_RED_FLOATS = F_G * F_TC * 4 * C;  // partial sums of one output row
+constexpr int F_W_FLOATS = 9 * K * C;
+constexpr int F_SMEM = (F_STAGES * F_ROW_FLOATS + F_RED_FLOATS + F_W_FLOATS) * 4;
+static_assert(F_Q % F_G == 0 && F_THREADS % F_Q == 0, "whole chunks a warp and a thread");
+static_assert(F_W_FLOATS % 4 == 0 && F_RED_FLOATS % 4 == 0, "16-byte alignment");
 
-__global__ void __launch_bounds__(F_THREADS)
+// Shared float offset of 16-byte chunk q of staged pixel px: the chunk is
+// XORed with bits 2-4 of px, so that the lanes of a quarter warp, which read
+// pixels 4 apart, hit 8 different 16-byte bank groups.
+__device__ __forceinline__ int f_chunk(int px, int q) {
+  return 4 * (F_Q * px + (q ^ ((px >> 2) & 7)));
+}
+
+// Issue the copies of band input row t (HR row 4*i0 - 1 + t) into ring slot
+// `dst`; pixels outside the image are zero-filled without reading memory.
+// A thread copies the same chunk of every pixel it copies.
+__device__ __forceinline__ void f_stage(const float* img, int H4, int W4, int i0, int j0,
+                                        int t, uint32_t dst) {
+  const int r = 4 * i0 - 1 + t;
+  const bool row_in = r >= 0 && r < H4;
+  const int q = threadIdx.x % F_Q;
+  const float* row = img + (size_t)(row_in ? r : 0) * W4 * K + 4 * q;
+  for (int px = threadIdx.x / F_Q; px < F_SW; px += F_THREADS / F_Q) {
+    const int x = 4 * j0 - 1 + px;
+    const bool in = row_in && x >= 0 && x < W4;
+    cp_async16(dst + 4 * f_chunk(px, q), in ? row + (size_t)x * K : img, in ? 16 : 0);
+  }
+}
+
+// One input row: warp g's channels k = 16g .. 16g + 15 (chunks F_QW g ..)
+// of staged row `buf`.  Row t adds row tap u to output row t - u, kept in
+// acc[2 - u].
+__device__ __forceinline__ void f_row_fma(const float* buf, const float* ws, int g, int lane,
+                                          float (&acc)[3][4][C]) {
+#pragma unroll
+  for (int qq = 0; qq < F_QW; ++qq) {
+    const int kq = F_QW * g + qq;
+    float f[6][4];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(buf + f_chunk(4 * lane + i, kq));
+      f[i][0] = v.x;
+      f[i][1] = v.y;
+      f[i][2] = v.z;
+      f[i][3] = v.w;
+    }
+    // w[u, v, k, c] in HWIO: the 12 floats (k, c) of a tap and a chunk are
+    // contiguous, 3 float4s
+    const float* wq = ws + 4 * C * kq;
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        const float4* wp = reinterpret_cast<const float4*>(wq + (u * 3 + v) * K * C);
+        const float4 w0 = wp[0], w1 = wp[1], w2 = wp[2];
+        const float w[12] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y,
+                             w1.z, w1.w, w2.x, w2.y, w2.z, w2.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[2 - u][b][c] = fmaf(f[b + v][kk], w[kk * C + c], acc[2 - u][b][c]);
+      }
+  }
+}
+
+// Output row e of the band (HR row 4*i0 + e), channel c = warp: the 4
+// warps' partial sums of lane j's 4 HR columns, the bias, the sigmoid,
+// rounded to bf16 into slot e % 4 of rec; after slot 3 the channel's 32
+// bytes of the LR pixel's record go out as two 16-byte stores.
+__device__ __forceinline__ void f_epilogue(const float* red, float bias_c, int e,
+                                           __nv_bfloat16* out, int b, int H, int W, int i0,
+                                           int j0, uint32_t (&rec)[8]) {
+  const int c = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (c >= C) return;
+  const float4* r4 = reinterpret_cast<const float4*>(red);
+  float y[4] = {bias_c, bias_c, bias_c, bias_c};
+#pragma unroll
+  for (int g = 0; g < F_G; ++g) {
+    const float4 p = r4[(g * F_TC + lane) * C + c];
+    y[0] += p.x;
+    y[1] += p.y;
+    y[2] += p.z;
+    y[3] += p.w;
+  }
+  float sg[4];
+#pragma unroll
+  for (int bb = 0; bb < 4; ++bb) sg[bb] = 1.f / (1.f + expf(-y[bb]));
+  const uint32_t lo = pack_bf16x2(sg[0], sg[1]), hi = pack_bf16x2(sg[2], sg[3]);
+  const int a = e & 3;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (s == a) {
+      rec[2 * s] = lo;
+      rec[2 * s + 1] = hi;
+    }
+  if (a == 3 && lane < W - j0) {
+    uint4* dst = reinterpret_cast<uint4*>(
+        out + (((size_t)b * H + i0 + (e >> 2)) * W + j0 + lane) * REC + c * 16);
+    dst[0] = make_uint4(rec[0], rec[1], rec[2], rec[3]);
+    dst[1] = make_uint4(rec[4], rec[5], rec[6], rec[7]);
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS, F_BLOCKS)
 conv_out_s2d_f32_kernel(const float* __restrict__ feat, const float* __restrict__ wgt,
                         const float* __restrict__ bias_g, __nv_bfloat16* __restrict__ out,
                         int H, int W) {
-  extern __shared__ __align__(16) float fsm[];
-  float4* w4 = reinterpret_cast<float4*>(fsm + F_STAGE);
-  const int b = blockIdx.z, i = blockIdx.y, j0 = blockIdx.x * F_LRC;
-  const int H4 = 4 * H, W4 = 4 * W, tid = threadIdx.x;
+  extern __shared__ __align__(128) float fsm[];
+  float* red = fsm + F_STAGES * F_ROW_FLOATS;
+  float* ws = red + F_RED_FLOATS;
+  const int b = blockIdx.z, i0 = blockIdx.y * F_BH, j0 = blockIdx.x * F_TC;
+  const int H4 = 4 * H, W4 = 4 * W;
+  const int NR = 4 * min(F_BH, H - i0) + 2;  // band input rows
   const float* img = feat + (size_t)b * H4 * W4 * K;
-  for (int e = tid; e < 9 * K; e += F_THREADS)  // e = (u * 3 + v) * K + k
-    w4[e] = make_float4(__ldg(wgt + C * e), __ldg(wgt + C * e + 1), __ldg(wgt + C * e + 2), 0.f);
-  const int a = tid / F_COLS, xl = tid % F_COLS;  // HR row 4i + a, column 4 j0 + xl
-  float acc[C] = {0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += F_KC) {
-    __syncthreads();  // the previous chunk is read (and the weights written)
-    for (int e = tid; e < 6 * F_SW * (F_KC / 4); e += F_THREADS) {
-      const int q = e % (F_KC / 4), p = (e / (F_KC / 4)) % F_SW, r = e / (F_KC / 4 * F_SW);
-      const int gy = 4 * i - 1 + r, gx = 4 * j0 - 1 + p;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < H4 && gx >= 0 && gx < W4)
-        v = __ldg(reinterpret_cast<const float4*>(img + ((size_t)gy * W4 + gx) * K + k0) + q);
-      *reinterpret_cast<float4*>(fsm + (r * F_SW + p) * F_PIX + 4 * q) = v;
-    }
-    __syncthreads();
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(fsm));
+
+  // the first F_STAGES - 1 rows in flight while the weights are copied
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* px = fsm + ((a + tap / 3) * F_SW + xl + tap % 3) * F_PIX;
-      const float4* wp = w4 + tap * K + k0;
-#pragma unroll
-      for (int kq = 0; kq < F_KC / 4; ++kq) {
-        const float4 f = *reinterpret_cast<const float4*>(px + 4 * kq);
-        const float fs[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float4 w = wp[4 * kq + t];
-          acc[0] = fmaf(fs[t], w.x, acc[0]);
-          acc[1] = fmaf(fs[t], w.y, acc[1]);
-          acc[2] = fmaf(fs[t], w.z, acc[2]);
-        }
-      }
-    }
+  for (int t = 0; t < F_STAGES - 1; ++t) {  // NR >= 6
+    f_stage(img, H4, W4, i0, j0, t, ring + t * F_ROW_FLOATS * 4);
+    cp_async_commit();
   }
-  const int x = 4 * j0 + xl;
-  if (x >= W4) return;
-  __nv_bfloat16* o = out + (((size_t)b * H + i) * W + (x >> 2)) * REC + a * 4 + (x & 3);
+  for (int e = threadIdx.x; e < F_W_FLOATS / 4; e += F_THREADS)
+    reinterpret_cast<float4*>(ws)[e] = __ldg(reinterpret_cast<const float4*>(wgt) + e);
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float bias_c = __ldg(bias_g + min(g, C - 1));
+  float acc[3][4][C];
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    o[c * 16] = __float2bfloat16_rn(1.f / (1.f + expf(-(acc[c] + __ldg(bias_g + c)))));
+  for (int o = 0; o < 3; ++o)
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[o][bb][c] = 0.f;
+  uint32_t rec[8];
+
+  // Two barriers a row: after the first, row t has landed and row t - 1's
+  // slot is free; the second keeps the partial sums of output row t - 3,
+  // written after row t - 1 and read here, from being rewritten after row t.
+  for (int t = 0; t < NR; ++t) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    if (t + F_STAGES - 1 < NR)
+      f_stage(img, H4, W4, i0, j0, t + F_STAGES - 1,
+              ring + ((t + F_STAGES - 1) % F_STAGES) * F_ROW_FLOATS * 4);
+    cp_async_commit();
+    if (t >= 3) f_epilogue(red, bias_c, t - 3, out, b, H, W, i0, j0, rec);
+    __syncthreads();
+    f_row_fma(fsm + (t % F_STAGES) * F_ROW_FLOATS, ws, g, lane, acc);
+    // output row t - 2 is complete: its partial sums out, the rows roll
+    float4* r4 = reinterpret_cast<float4*>(red) + (g * F_TC + lane) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      r4[c] = make_float4(acc[0][0][c], acc[0][1][c], acc[0][2][c], acc[0][3][c]);
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        acc[0][bb][c] = acc[1][bb][c];
+        acc[1][bb][c] = acc[2][bb][c];
+        acc[2][bb][c] = 0.f;
+      }
+  }
+  // the band's last output row, complete after the last row
+  cp_async_wait<0>();
+  __syncthreads();
+  f_epilogue(red, bias_c, NR - 3, out, b, H, W, i0, j0, rec);
 }
 
 }  // namespace
@@ -390,12 +539,21 @@ conv_out_s2d_f32_kernel(const float* __restrict__ feat, const float* __restrict_
 // Plain C entry points (loaded with ctypes), both on the calling thread's
 // current device.
 //
-// conv_out_s2d_init: raise the kernel's dynamic shared memory limit to
-// what it needs; once per device, before its first launch.
+// conv_out_s2d_init: raise both kernels' dynamic shared memory limits to
+// what they need, and ask for the f32 kernel's two blocks an SM; once per
+// device, before the first launch.
 extern "C" int conv_out_s2d_init() {
-  return (int)cudaFuncSetAttribute(conv_out_s2d_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(conv_out_s2d_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(conv_out_s2d_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(conv_out_s2d_f32_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return (int)err;
 }
 
 // conv_out_s2d_launch: launch on `stream` without synchronising; feat is
@@ -405,7 +563,7 @@ extern "C" int conv_out_s2d_launch(const void* feat, const void* weight,
                                    const void* bias, void* out, int B, int H,
                                    int W, int f32, void* stream) {
   if (f32) {
-    const dim3 grid((W + F_LRC - 1) / F_LRC, H, B);
+    const dim3 grid((W + F_TC - 1) / F_TC, (H + F_BH - 1) / F_BH, B);
     conv_out_s2d_f32_kernel<<<grid, F_THREADS, F_SMEM, (cudaStream_t)stream>>>(
         static_cast<const float*>(feat), static_cast<const float*>(weight),
         static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W);

@@ -24,6 +24,17 @@ TOL = 1e-5
 SHAPES = [(1, 48, 64, 64), (2, 36, 32, 64), (1, 96, 128, 64), (2, 24, 40, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread in this module: the suite runs several
+    pytest workers on the machine's cores, where torch's default of a
+    thread a core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cases():
     for shape in SHAPES:
         h = shape[1] // 4
@@ -127,54 +138,72 @@ def test_kernel_tiling_model_matches_reference(rng, shape, tiling):
     torch.testing.assert_close(got, want, rtol=0, atol=TOL)
 
 
-def _f32_kernel_model(feat, k, b, lrc):
+def _f32_kernel_model(feat, k, b, tc, bh):
     """A torch transliteration, in fp32, of the fp32 route's kernel
-    (``conv_out_s2d_f32_kernel``): a block per LR row and ``lrc`` LR
-    columns stages 6 HR rows of ``4 lrc + 2`` pixels (zero outside the
-    image), one thread per HR pixel (a, xl) sums its 9 taps over the f32
-    weights (not rounded), and the pixels inside the image write
-    sigmoid(sum + bias) to channel ``c*16 + a*4 + x % 4`` of LR pixel
-    ``x // 4``."""
+    (``conv_out_s2d_f32_kernel``) on the f32 weights as they are.  A block
+    owns a strip of ``tc`` LR columns (lane j: HR columns 4j .. 4j + 3 of
+    the strip's ``4 tc + 2`` staged pixels, a halo of one, zero outside the
+    image) and walks a band of ``bh`` LR rows one HR input row at a time
+    (a ring stage; rows outside the image zero).  Warp g sums channels
+    16g .. 16g + 15 of each row into 3 rolling output rows: input row t
+    adds row tap u to output row t - u.  After row e + 2 the four warps'
+    partial sums of output row e meet, in warp order, after the bias; the
+    sigmoid goes to slot e % 4 of the lane's LR record, stored after slot
+    3 for the lanes inside the image."""
     B, H4, W4, K = feat.shape
     H, W = H4 // 4, W4 // 4
-    sw = 4 * lrc + 2
+    sw = 4 * tc + 2
+    chans = [torch.arange(16 * g, 16 * g + 16) for g in range(4)]
+    # lane j, column b, column tap v reads staged pixel 4j + b + v
+    px = (4 * torch.arange(tc)[:, None, None] + torch.arange(4)[None, :, None]
+          + torch.arange(3)[None, None, :])
     out = torch.full((B, H, W, 48), float("nan"))
+    slots = torch.arange(sw)
     for bi in range(B):
-        for i in range(H):
-            for j0 in range(0, W, lrc):
-                staged = torch.zeros(6, sw, K)
-                for r in range(6):
-                    gy = 4 * i - 1 + r
-                    gx = 4 * j0 - 1 + torch.arange(sw)
-                    ok = (gx >= 0) & (gx < W4)
-                    if 0 <= gy < H4:
-                        staged[r, ok] = feat[bi, gy, gx[ok]]
-                acc = torch.zeros(4, 4 * lrc, 3)
-                for u in range(3):
-                    for v in range(3):
-                        acc += staged[u:u + 4, v:v + 4 * lrc] @ k[u, v]
-                y = torch.sigmoid(acc + b)  # (a, xl, c)
-                x = 4 * j0 + torch.arange(4 * lrc)
-                for a in range(4):
-                    for xl in torch.nonzero(x < W4).flatten().tolist():
-                        xx = int(x[xl])
-                        for c in range(3):
-                            out[bi, i, xx // 4, c * 16 + a * 4 + xx % 4] = y[a, xl, c]
+        for j0 in range(0, W, tc):
+            x = 4 * j0 - 1 + slots
+            cols_in = (x >= 0) & (x < W4)
+            nj = min(tc, W - j0)
+            for i0 in range(0, H, bh):
+                nr = 4 * min(bh, H - i0) + 2
+                acc = torch.zeros(3, 4, tc, 4, 3)  # (output row t - 2 + o, warp, lane, b, c)
+                rec = torch.zeros(tc, 3, 4, 4)     # (lane, c, a, b)
+                for t in range(nr):
+                    r = 4 * i0 - 1 + t
+                    row = torch.zeros(sw, K)
+                    if 0 <= r < H4:
+                        row[cols_in] = feat[bi, r, x[cols_in]]
+                    taps = row[px]  # (lane, b, v, K)
+                    for g in range(4):
+                        for u in range(3):
+                            acc[2 - u, g] += torch.einsum(
+                                "jbvk,vkc->jbc", taps[..., chans[g]], k[u][:, chans[g]])
+                    e = t - 2
+                    if e >= 0:
+                        y = b + acc[0, 0] + acc[0, 1] + acc[0, 2] + acc[0, 3]
+                        rec[:, :, e % 4, :] = torch.sigmoid(y).permute(0, 2, 1)
+                        if e % 4 == 3:
+                            out[bi, i0 + e // 4, j0:j0 + nj] = rec[:nj].reshape(nj, 48)
+                    acc = torch.cat([acc[1:], torch.zeros(1, 4, tc, 4, 3)])
     return out
 
 
-# the f32 kernel's LR columns a block, and a small one with ragged tails
-F32_TILINGS = {"kernel": 16, "small": 3}
+# the f32 kernel's strip and band (F_TC, F_BH), and a small tiling with
+# ragged tails in both H and W
+F32_TILINGS = {"kernel": (32, 16), "small": (3, 5)}
 
 
 @pytest.mark.parametrize("tiling", list(F32_TILINGS))
-@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 12, 4 * 37, 64), (1, 4, 4, 64)])
+@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 12, 4 * 37, 64), (1, 4, 4, 64),
+                                   (1, 4 * 17, 4 * 33, 64)])
 def test_f32_kernel_tiling_model_matches_reference(rng, shape, tiling):
     """The fp32 route's kernel sums on the f32 weights as they are: its
-    tiling holds the plain version in f32 to summation order."""
+    tiling holds the plain version in f32 to summation order.  The last
+    shape spans two strips and two bands of the kernel's tiling, each
+    with a ragged tail."""
     feat, k, b = _inputs(rng, shape)
     feat, k, b = torch.from_numpy(feat), torch.from_numpy(k), torch.from_numpy(b)
-    got = _f32_kernel_model(feat, k, b, F32_TILINGS[tiling])
+    got = _f32_kernel_model(feat, k, b, *F32_TILINGS[tiling])
     torch.testing.assert_close(got, kmod.conv_out_s2d_reference(feat, k, b), rtol=0, atol=TOL)
 
 

@@ -93,12 +93,13 @@ def _models(dev, cfg, seed=0, cpu_precision="fp32"):
     return gpu.eval(), cpu.eval(), sd
 
 
-# the last spans 5 strips and 5 bands of the bf16 kernel's tiling, with
-# ragged tails in both
+# (2, 268, 532, 64) spans 5 strips and 5 bands of the bf16 kernel's tiling,
+# (3, 148, 300, 64) 3 strips and 3 bands of the f32 kernel's (32 LR columns,
+# 16 LR rows), each with ragged tails in both
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 36, 44, 64),
                                    (1, 148, 212, 64), (3, 4, 4, 64),
-                                   (2, 4 * 67, 4 * 133, 64)])
+                                   (2, 4 * 67, 4 * 133, 64), (3, 4 * 37, 4 * 75, 64)])
 def test_kernel_matches_reference(cuda, shape, dtype):
     """Against the plain version in f32 on the weights the kernel computes
     with, so that the bars measure its arithmetic: rounded to bf16 for bf16

@@ -26,6 +26,7 @@ from ..ops.kernels import warp_s2d as _warp_kernel
 from ..ops.image import deprocess
 from ..ops.space import depth_to_space, space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
+from ..utils.spans import span
 
 
 def conv_out_s2d(feat_hr: torch.Tensor, kernel: torch.Tensor,
@@ -97,10 +98,21 @@ def first_layer_zero_feedback(model: Generator, lr0: torch.Tensor) -> torch.Tens
 def fused_first_frame_s2d(model: Generator, lr0: torch.Tensor,
                           tail_fn: Optional[Callable] = None) -> torch.Tensor:
     """Frame 0 -> its s2d carry.  ``tail_fn(net)`` replaces
-    ``model.tail_features`` (the int8 tail, engine/quant.py)."""
-    net = first_layer_zero_feedback(model, lr0)
-    feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
-    return conv_out_s2d(feat, *conv_out_params(model))
+    ``model.tail_features`` (the int8 tail, engine/quant.py).  Spans
+    ``first_layer``, ``trunk`` and ``conv_out`` (``utils/spans.py``)."""
+    with span("first_layer"):
+        net = first_layer_zero_feedback(model, lr0)
+    return _tail_s2d(model, net, tail_fn)
+
+
+def _tail_s2d(model: Generator, net: torch.Tensor,
+              tail_fn: Optional[Callable]) -> torch.Tensor:
+    """First-layer activations -> the s2d carry, under the spans ``trunk``
+    and ``conv_out``."""
+    with span("trunk"):
+        feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
+    with span("conv_out"):
+        return conv_out_s2d(feat, *conv_out_params(model))
 
 
 def carry_feedback(carry_s2d: torch.Tensor, prev_lr: torch.Tensor,
@@ -121,8 +133,10 @@ def fused_sr_step_s2d(model: Generator, carry_s2d: torch.Tensor,
                       warp_group: int = 4) -> torch.Tensor:
     """One recurrent step, s2d carry in -> s2d carry out (NHWC);
     ``tail_fn`` as in :func:`fused_first_frame_s2d`, the warp as
-    :func:`carry_feedback`."""
-    feedback = carry_feedback(carry_s2d, prev_lr, warp_group)
-    net = fused_first_layer(model, cur_lr, feedback)
-    feat = model.tail_features(net) if tail_fn is None else tail_fn(net)
-    return conv_out_s2d(feat, *conv_out_params(model))
+    :func:`carry_feedback`.  Spans ``warp``, ``first_layer``, ``trunk``
+    and ``conv_out``."""
+    with span("warp"):
+        feedback = carry_feedback(carry_s2d, prev_lr, warp_group)
+    with span("first_layer"):
+        net = fused_first_layer(model, cur_lr, feedback)
+    return _tail_s2d(model, net, tail_fn)

@@ -25,6 +25,7 @@ from ..ops.image import (deprocess, start_host_copy, transfer_dequantize_f32,
                          transfer_to_uint8)
 from ..ops.space import space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
+from ..utils.spans import span
 from .fused import fused_first_frame_s2d, fused_sr_step_s2d, s2d_to_frame
 from .quant import calibrate_clip, quantize_tail, tail_features_int8
 from .state import model_defs, resolve_device
@@ -34,9 +35,10 @@ def sr_step(model: Generator, prev_sr: torch.Tensor, prev_lr: torch.Tensor,
             cur_lr: torch.Tensor, parity_half: bool = True) -> torch.Tensor:
     """One recurrent step, all NHWC: prev_sr (B, 4H, 4W, 3), LR frames
     (B, H, W, 3) -> SR frame (B, 4H, 4W, 3)."""
-    grid = pseudo_flow_nchw(prev_lr.permute(0, 3, 1, 2), parity_half)
-    warped = grid_sample(prev_sr.float(), grid)
-    feedback = space_to_depth(deprocess(warped))  # (B, H, W, 48)
+    with span("warp"):
+        grid = pseudo_flow_nchw(prev_lr.permute(0, 3, 1, 2), parity_half)
+        warped = grid_sample(prev_sr.float(), grid)
+        feedback = space_to_depth(deprocess(warped))  # (B, H, W, 48)
     return model(torch.cat([cur_lr.float(), feedback], dim=-1))
 
 
@@ -116,13 +118,15 @@ def _int8_route(route: _Route, qtail) -> _Route:
 def _run(route: _Route, model: Generator, lr: torch.Tensor, carry=None):
     """Frames ``lr`` (B, K, H, W, 3) f32 on the model's device, after the
     state ``carry`` = (SR carry, previous LR frame), or from frame 0 when
-    it is None.  Returns the new state and the K carries stacked on dim 1."""
+    it is None.  Returns the new state and the K carries stacked on dim 1.
+    Each frame is the span ``frame``."""
     carries = []
     for t in range(lr.shape[1]):
-        if carry is None:
-            sr = route.first(model, lr[:, t])
-        else:
-            sr = route.step(model, carry[0], carry[1], lr[:, t])
+        with span("frame"):
+            if carry is None:
+                sr = route.first(model, lr[:, t])
+            else:
+                sr = route.step(model, carry[0], carry[1], lr[:, t])
         carry = (sr, lr[:, t])
         carries.append(sr)
     return carry, torch.stack(carries, dim=1)
@@ -206,6 +210,11 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
     The copy of window i to the host overlaps window i+1's compute: it
     runs on a side stream that waits for window i, and the host hands
     window i over only after it has queued window i+1.
+
+    A window's spans (``utils/spans.py``): ``upload`` (to the device,
+    dequantized), its frames' (:func:`_run`), ``output`` (the carries to
+    frames, and to uint8), ``copy_start`` (the copy queued) and
+    ``copy_wait`` (the host waiting for it); the sink runs outside them.
     """
     route = _route(cfg)
 
@@ -228,8 +237,9 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
 
         def emit(pending):
             host, done = pending
-            if done is not None:
-                done.synchronize()
+            with span("copy_wait"):
+                if done is not None:
+                    done.synchronize()
             if sink is None:
                 out.append(host)
             else:
@@ -239,14 +249,17 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
         # needs no padding, since nothing here is compiled per shape.
         carry = pending = None
         for pos in range(0, T, chunk):
-            window = _dequant_in(lr_clip[:, pos:pos + chunk].to(dev))
+            with span("upload"):
+                window = _dequant_in(lr_clip[:, pos:pos + chunk].to(dev))
             carry, carries = _run(run_route, model, window, carry)
-            sr = run_route.frames(carries)
-            if out_u8:
-                sr = transfer_to_uint8(sr)
+            with span("output"):
+                sr = run_route.frames(carries)
+                if out_u8:
+                    sr = transfer_to_uint8(sr)
             if pending is not None:
                 emit(pending)
-            pending = start_host_copy(sr, side)
+            with span("copy_start"):
+                pending = start_host_copy(sr, side)
             del sr, carries  # free this window on the device before the next runs
         if pending is not None:
             emit(pending)
@@ -353,6 +366,8 @@ def build_stream_inference(cfg: TecoConfig):
     later calls the warp step (a Python branch).  lr_frame is float [0,1]
     or uint8, on any device; sr_frame is (B, 4H, 4W, 3) float32.  A
     stream of frames reproduces ``build_clip_inference`` bit for bit.
+    A step's spans are ``upload``, ``frame`` and ``output``, as in the
+    chunked loop.
     """
     route = _route(cfg)
 
@@ -367,12 +382,15 @@ def build_stream_inference(cfg: TecoConfig):
 
     @torch.inference_mode()
     def step_fn(model: Generator, state: StreamState, lr_frame: torch.Tensor):
-        lr = _dequant_in(lr_frame.to(state.prev_lr.device))
-        if state.initialized:
-            sr = route.step(model, state.prev_sr, state.prev_lr, lr)
-        else:
-            sr = route.first(model, lr)
-        return (StreamState(prev_sr=sr, prev_lr=lr, initialized=True),
-                route.frames(sr[:, None])[:, 0])
+        with span("upload"):
+            lr = _dequant_in(lr_frame.to(state.prev_lr.device))
+        with span("frame"):
+            if state.initialized:
+                sr = route.step(model, state.prev_sr, state.prev_lr, lr)
+            else:
+                sr = route.first(model, lr)
+        with span("output"):
+            out = route.frames(sr[:, None])[:, 0]
+        return StreamState(prev_sr=sr, prev_lr=lr, initialized=True), out
 
     return init_fn, step_fn

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..models import Generator
 from ..ops.kernels import int8_conv as _int8_kernels
 from ..utils.convert import GENERATOR_TRANSPOSED
+from ..utils.spans import span
 from . import fused
 from .state import float_params, resolve_device
 
@@ -65,16 +66,19 @@ def _conv_layers(model: Generator) -> Dict[str, _Layer]:
 def _chain(model: Generator, net: torch.Tensor, conv: Callable) -> torch.Tensor:
     """``tail_features``' control flow, NHWC, with a pluggable
     ``conv(x, name, relu=False, residual=None)`` that applies the ReLU and
-    then the residual add after its conv."""
-    for i in range(model.num_resblock):
-        y = conv(net, f"resblock_{i}/Conv_0", relu=True)
-        net = conv(y, f"resblock_{i}/Conv_1", residual=net)
-    net = conv(net, "up1", relu=True)
-    for nm in ("trunk_rb1", "trunk_rb2"):
-        net = conv(net, f"{nm}/Conv_0", relu=True)
-        net = conv(net, f"{nm}/Conv_1")
-    net = conv(net, "up2", relu=True)
-    return conv(net, "conv_hr", relu=True)
+    then the residual add after its conv.  The spans are those of
+    ``Generator._features``: ``trunk.resblocks`` and ``trunk.upsample``."""
+    with span("trunk.resblocks"):
+        for i in range(model.num_resblock):
+            y = conv(net, f"resblock_{i}/Conv_0", relu=True)
+            net = conv(y, f"resblock_{i}/Conv_1", residual=net)
+    with span("trunk.upsample"):
+        net = conv(net, "up1", relu=True)
+        for nm in ("trunk_rb1", "trunk_rb2"):
+            net = conv(net, f"{nm}/Conv_0", relu=True)
+            net = conv(net, f"{nm}/Conv_1")
+        net = conv(net, "up2", relu=True)
+        return conv(net, "conv_hr", relu=True)
 
 
 def calibrate(model: Generator, net: torch.Tensor):

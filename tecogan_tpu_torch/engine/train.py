@@ -25,9 +25,10 @@ on the card a backward may sum in another order on each (cuDNN's weight
 gradients, ``grid_sample``'s atomics): one more mean, over the model
 group, of those gradients keeps the replicated leaves equal on its ranks.
 
-The phases run under ``torch.profiler.record_function`` spans
-(``gen_objective``, ``gen_backward``, ``disc_step``, ``adam``, and
-``all_reduce`` with a group), which ``tools/profile_train.py`` reads.
+The phases run under the port's spans (``utils/spans.py``, recorded only
+under a running profiler): ``teco.gen_objective``, ``teco.gen_backward``,
+``teco.disc_step``, ``teco.adam``, and ``teco.all_reduce`` with a group,
+which ``tools/profile_train.py`` reads.
 """
 
 from __future__ import annotations
@@ -36,11 +37,11 @@ from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import TecoConfig
 from ..models.layers import set_model_group
 from ..ops.image import transfer_dequantize_f32
+from ..utils.spans import span
 from .losses import discriminator_loss, tecogan_losses
 from .state import TrainState, make_optimizers, resolve_device, train_model_defs
 
@@ -100,15 +101,15 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None,
         lr_now = sched(state.epoch)
 
         params_g = _leaves(state.params_g)
-        with record_function("gen_objective"):
+        with span("gen_objective"):
             gen_loss, aux = tecogan_losses(
                 gen, disc, params_g, state.params_d, state.batch_stats_d,
                 lr_batch, hr_batch, state.step, cfg, vgg_apply, group)
-        with record_function("gen_backward"):
+        with span("gen_backward"):
             grads_g = dict(zip(params_g, torch.autograd.grad(
                 gen_loss, list(params_g.values()))))
 
-        with record_function("disc_step"):
+        with span("disc_step"):
             params_d = _leaves(state.params_d)
             d_loss, new_stats = discriminator_loss(
                 disc, params_d, state.batch_stats_d, aux["real_in"],
@@ -120,14 +121,14 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None,
         metrics["d_loss"] = d_loss.detach()
         metrics["gen_loss"] = gen_loss.detach()
         if group is not None:
-            with record_function("all_reduce"):
+            with span("all_reduce"):
                 grads_g = _rank_mean(grads_g, group)
                 grads_d = _rank_mean(grads_d, group)
                 # Dst_ratio is the same on every rank: kept out of the mean
                 metrics.update(_rank_mean(
                     {k: v for k, v in metrics.items() if k != "Dst_ratio"}, group))
         if model_group is not None:
-            with record_function("all_reduce"):
+            with span("all_reduce"):
                 grads = {"g": grads_g, "d": grads_d}
                 replicated = _rank_mean({(m, k): v for m, gr in grads.items()
                                          for k, v in gr.items() if k not in sharded[m]},
@@ -141,7 +142,7 @@ def build_train_step(cfg: TecoConfig, vgg_apply=None, device=None, group=None,
             apply_d = torch.ones((), dtype=torch.bool, device=dev)
         else:
             apply_d = metrics["t_balance"] < cfg.Dbalance
-        with record_function("adam"):
+        with span("adam"):
             new_g, opt_g_state = opt_g.update(state.params_g, grads_g,
                                               state.opt_g, lr_now)
             new_d, opt_d_state = opt_d.update(

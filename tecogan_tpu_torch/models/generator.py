@@ -18,7 +18,9 @@ The public methods take and return NHWC tensors and run
 NCHW ``channels_last`` inside, so the permutes are free views.  The
 ``forward`` / ``tail`` / ``tail_features`` split is the JAX one: the
 fused route computes the first layer itself and swaps ``conv_out`` for
-the s2d kernel.
+the s2d kernel.  ``_features`` runs under the spans ``trunk.resblocks``
+(the LR resblocks) and ``trunk.upsample`` (``up1`` to ``conv_hr``;
+``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.spans import span
 from .layers import Conv, ConvTranspose2x, ResidualBlock
 
 
@@ -77,10 +80,12 @@ class Generator(nn.Module):
         return torch.sigmoid(net.to(self.out_dtype))
 
     def _features(self, net: torch.Tensor) -> torch.Tensor:
-        for i in range(self.num_resblock):
-            net = getattr(self, f"resblock_{i}")(net) + net
-        net = F.relu(self.up1(net))
-        net = self.trunk_rb1(net)
-        net = self.trunk_rb2(net)
-        net = F.relu(self.up2(net))
-        return F.relu(self.conv_hr(net))
+        with span("trunk.resblocks"):
+            for i in range(self.num_resblock):
+                net = getattr(self, f"resblock_{i}")(net) + net
+        with span("trunk.upsample"):
+            net = F.relu(self.up1(net))
+            net = self.trunk_rb1(net)
+            net = self.trunk_rb2(net)
+            net = F.relu(self.up2(net))
+            return F.relu(self.conv_hr(net))

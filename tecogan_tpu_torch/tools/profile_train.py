@@ -16,12 +16,12 @@ bf16; random flax-layout weights from seed 0, batches from
   kernel time by kind (cuDNN conv forward, data grad and weight grad,
   elementwise, reductions, ``grid_sample``, copies, the Adam
   ``multi_tensor_apply`` kernels, ...) and by name; and the train step's
-  phases (the ``record_function`` spans of ``engine/train.py``: the
-  generator objective, its backward, the D step, Adam), each with its
-  host time and its extent on the device timeline (first kernel start to
-  last kernel end, gaps included).  Backward kernels are launched from
-  autograd's own thread, outside the spans, so ``gen_backward`` shows
-  host time only and ``disc_step`` its forward's extent;
+  phases (the ``teco.*`` spans of ``engine/train.py``: the generator
+  objective, its backward, the D step, Adam), each with its host time
+  and the device time of the kernels launched inside it.  Backward
+  kernels are launched from autograd's own thread, outside the spans, so
+  ``gen_backward`` shows host time only and ``disc_step`` its forward's
+  kernels;
 * the host time that ``torch.func.functional_call`` adds to one call of
   each model (the train step rebinds the state's params on every
   generator frame and every discriminator pass): ``functional_call`` on
@@ -53,7 +53,7 @@ from ..utils.timing import card
 
 WARMUP, STEPS, TRACED, SEED = 3, 10, 3, 0
 REBIND_CALLS, REBIND_ROUNDS = 100, 5
-SPANS = ("gen_objective", "gen_backward", "disc_step", "adam")
+SPANS = ("teco.gen_objective", "teco.gen_backward", "teco.disc_step", "teco.adam")
 # (kind, substrings of the kernel name), first match wins
 KINDS = (
     ("conv weight grad (cuDNN)", ("wgrad",)),
@@ -160,25 +160,19 @@ def profile(cfg: TecoConfig, dev: torch.device, smi: str) -> dict:
         traced = time.perf_counter() - t0
     events = prof.key_averages()
     # device-side events only: the aten ops on the CPU side report the same
-    # kernel time again as their own; the spans' device-side annotations
-    # are not kernels
+    # kernel time again as their own
     kernels = [(e.key, e.self_device_time_total, e.count) for e in events
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               and e.key not in SPANS]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(k[1] for k in kernels)
     by_kind: dict = {}
     for name, us, count in kernels:
         k = by_kind.setdefault(kind_of(name), {"ms": 0.0, "launches": 0})
         k["ms"] += us / 1e3 / TRACED
         k["launches"] += count // TRACED
-    spans = {}
-    for e in events:
-        if e.key in SPANS:
-            s = spans.setdefault(e.key, {"host_ms": None, "device_extent_ms": None})
-            if e.device_type == DeviceType.CUDA:
-                s["device_extent_ms"] = e.device_time_total / 1e3 / TRACED
-            else:
-                s["host_ms"] = e.cpu_time_total / 1e3 / TRACED
+    # a span's device time: the kernels launched inside it, children included
+    spans = {e.key: {"host_ms": e.cpu_time_total / 1e3 / TRACED,
+                     "device_ms": e.device_time_total / 1e3 / TRACED}
+             for e in events if e.key in SPANS}
     rec.update({
         "traced_step_ms": traced * 1e3 / TRACED,
         "device_busy_ms_per_step": busy_us / 1e3 / TRACED,
@@ -197,8 +191,8 @@ def profile(cfg: TecoConfig, dev: torch.device, smi: str) -> dict:
     for kind, v in rec["by_kind"].items():
         print(f"  {v['ms']:9.3f} ms x{v['launches']:<6d} {kind}", flush=True)
     for name, v in spans.items():
-        print(f"  span {name}: host {v['host_ms']} ms, device extent "
-              f"{v['device_extent_ms']} ms", flush=True)
+        print(f"  span {name}: host {v['host_ms']} ms, device {v['device_ms']} ms",
+              flush=True)
     for k in rec["kernels"][:12]:
         print(f"  {k['ms_per_step']:9.3f} ms x{k['count']:<5d} {k['name'][:100]}", flush=True)
     rec["rebind"] = rebind_cost(cfg, state, dev)

@@ -28,10 +28,12 @@ paper's config.  Phases:
    ``chip_tree/``), the earlier tree's f32 kernel's, built beside the
    kernels in phase 2 and held to the same bars;
 4. the full-width generator (16 resblocks, bf16) on a (1, 8, 270, 480, 3)
-   clip: output shape, range, both kernels' launch counts, fps, TFLOP/s
-   and MFU against the H100's dense bf16 peak; then the fp32 fused route
-   (TF32 off, the f32 kernel's path) on the same weights and clip: its
-   launch counts, fps and the f32 kernel's share of a frame;
+   clip: output shape, range, the hand kernels' launch counts (the bf16
+   fused conv kernels' 37 ``bf16_conv3x3`` and 2 ``bf16_up2x`` a frame among
+   them), fps, TFLOP/s and MFU against the H100's dense bf16 peak; then
+   the fp32 fused route (TF32 off, the f32 kernel's path) on the same
+   weights and clip: its launch counts (no bf16 conv kernel), fps and the
+   f32 kernel's share of a frame;
 5. the fused route with the kernels (bf16) against the exact route (fp32)
    on the same weights at a small width: last-frame PSNR above the bar.
    As in the port's tests, the conv kernels are scaled by 2.5 and the LR
@@ -130,8 +132,11 @@ paper's config.  Phases:
 15. the multi-rank paths (``tecogan_tpu_torch.parallel``), ranks spawned
    by ``parallel.mesh.spawn``; the machine has one card, so every rank
    uses it and no figure here is a multi-card one: (a) NCCL at world 1:
-   the spatial fused route (bf16, then int8) on the full-width clip
-   bit-equal to the single-device clip, and a DP train step (paper's
+   the spatial fused route on the full-width clip bit-equal to the
+   single-device clip in int8, and in bf16 to the single-device fused
+   recurrence on the modules' tail (the spatial route keeps cuDNN's convs
+   and torch's passes; the single-device route runs the bf16 fused conv
+   kernels, within (b)'s bars of it), and a DP train step (paper's
    config, fp32, TF32 off) against the single-process step; (b) 2 and 3
    gloo ranks sharing the card: the spatial fused route in bf16 and int8
    against the single-device clip (max 2e-2, mean 2e-3, PSNR > 40 dB;
@@ -164,16 +169,27 @@ paper's config.  Phases:
 17. the measurement programs (``tecogan_tpu_torch/tools/bench*.py``, the
    JAX repo's ``bench.py`` and ``tools/bench_*.py``) through their
    ``main(argv)`` at the JAX tools' defaults: every record finite, each
-   program's launches of the four hand kernels the count its routes
-   imply, no ``error`` line at batches 4-32, and each stream of a 4-stream
+   program's launches of the hand kernels the count its routes imply, no ``error`` line at batches 4-32, and each stream of a 4-stream
    clip against it served alone above 40 dB, on weights scaled so that
    the control, every stream fed stream 0's carry, scores below 40 dB
-   (phases 3 and 6 hold both kernels to plain at these B = 4 shapes).
+   (phases 3 and 6 hold both kernels to plain at these B = 4 shapes);
+18. the bf16 fused conv kernels (``bf16_conv3x3``, ``bf16_up2x``, the bf16
+   route's 39 tail convs with their bias, ReLU and skip add): each against
+   its plain version (the modules' chain of torch ops, cuDNN's conv and
+   torch's passes, on the card) within ``tools/bf16_layers.check``'s bars
+   (the f32 sums' order alone: a bf16 ulp a rounding) at the main path's
+   nine layer shapes and at the tiles' masked edges; at the nine shapes
+   each kernel's time (a CUDA graph) against its bound, the plain chain's
+   and cuDNN's conv + bias + ReLU (``tools/bf16_layers.py``); then no
+   launch on the fp32 and int8 routes and none in a bf16 train step (the
+   bf16 route's launches are counted where it runs: phases 4, 7, 8 and
+   13b and phases 15-17's paths).  ``python -m
+   tecogan_tpu_torch.tools.bf16_layers`` runs the nine shapes alone.
 
 Phases 9-11, 13a, c-e, 15's train steps (DP and TP) and 17's train programs run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
-In the kernels' JSON record the int8 kernels' times are a frame's: the
-sum over the frame's launches at each layer shape (37 and 2).
+In the kernels' JSON record the int8 and bf16 conv kernels' times are a
+frame's: the sum over the frame's launches at each layer shape (37 and 2).
 
 Phases 7, 8, 13f, 14 and 15 hold cuDNN to deterministic algorithms: the
 transposed convs' default algorithm may sum in a different order from
@@ -664,9 +680,6 @@ def adapt_phase(dev, smi, small, small_model, small_sd, small_clip, small_bf16,
     from tecogan_tpu_torch.engine.losses import generator_unroll
     from tecogan_tpu_torch.engine.state import init_generator, model_defs, train_tensors
     from tecogan_tpu_torch.models.vgg import init_vgg, vgg19_features, vgg_model
-    from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
-    from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
-    from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
     from tecogan_tpu_torch.ops.metrics import (lpips_distance, psnr_per_frame, ssim,
                                                vgg_perceptual_distance)
     from tecogan_tpu_torch.ops.resize import resize_bilinear_aa
@@ -676,13 +689,7 @@ def adapt_phase(dev, smi, small, small_model, small_sd, small_clip, small_bf16,
                        "base_ssim", "chosen_psnr_db", "chosen_ssim", "chosen_step",
                        "adapted_served"}
 
-    def reset_counts():
-        kmod.launch_count = wmod.launch_count = 0
-        qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
-
-    def counts():
-        return {"int8_conv3x3": qmod.conv3x3_launch_count, "int8_up2x": qmod.up2x_launch_count,
-                "conv_out_s2d": kmod.launch_count, "warp_s2d": wmod.launch_count}
+    reset_counts, counts = _reset_counts, _kernel_counts
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -774,11 +781,9 @@ def adapt_phase(dev, smi, small, small_model, small_sd, small_clip, small_bf16,
         require(tuple(out.shape) == shape and bool(torch.isfinite(out).all())
                 and float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
                 f"[13b] adapted {name} clip {tuple(out.shape)}")
-    require(bf16_counts == {"int8_conv3x3": 0, "int8_up2x": 0, "conv_out_s2d": SERVE_T,
-                            "warp_s2d": SERVE_T - 1}, f"[13b] bf16 launches {bf16_counts}")
-    require(q_counts == {"int8_conv3x3": SERVE_T * (2 * n + 5), "int8_up2x": 2 * SERVE_T,
-                         "conv_out_s2d": SERVE_T, "warp_s2d": SERVE_T - 1},
-            f"[13b] int8 launches {q_counts}")
+    require(n == 16 and bf16_counts == _fused_launches(SERVE_T, "bf16"),
+            f"[13b] bf16 launches {bf16_counts}")
+    require(q_counts == _fused_launches(SERVE_T, "int8"), f"[13b] int8 launches {q_counts}")
     # phase 5's scaled small width: adapt, then int8 against bf16 on the adapted params
     small_adapted = adapt_generator(small, small_sd, small_clip[0], steps=2, learning_rate=1e-4,
                                     device=dev)
@@ -1235,34 +1240,53 @@ def _model_on(cfg, params, dev):
 
 
 def _kernel_counts():
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
 
     return {"conv_out_s2d": kmod.launch_count, "warp_s2d": wmod.launch_count,
-            "int8_conv3x3": qmod.conv3x3_launch_count, "int8_up2x": qmod.up2x_launch_count}
+            "int8_conv3x3": qmod.conv3x3_launch_count, "int8_up2x": qmod.up2x_launch_count,
+            "bf16_conv3x3": bmod.conv3x3_launch_count, "bf16_up2x": bmod.up2x_launch_count}
 
 
 def _reset_counts():
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
 
     kmod.launch_count = wmod.launch_count = 0
     qmod.conv3x3_launch_count = qmod.up2x_launch_count = 0
+    bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+
+
+def _fused_launches(frames: int, tail: str) -> dict:
+    """The hand kernels' launches of a fused clip of ``frames`` frames at
+    16 resblocks: one ``conv_out_s2d`` a frame, one ``warp_s2d`` a frame
+    after the first, and the tail's 37 3x3 and 2 transposed convs a frame
+    on the kernels of ``tail`` ('bf16' or 'int8'; 'modules' runs cuDNN)."""
+    out = {"conv_out_s2d": frames, "warp_s2d": frames - 1, "int8_conv3x3": 0,
+           "int8_up2x": 0, "bf16_conv3x3": 0, "bf16_up2x": 0}
+    if tail != "modules":
+        out[f"{tail}_conv3x3"], out[f"{tail}_up2x"] = 37 * frames, 2 * frames
+    return out
 
 
 def _recorder():
     """A ``TorchDispatchMode`` (built on first use) that keeps the last
     launch of each hand kernel's custom op (``tecogan_tpu_torch::*``;
-    ``int8_conv3x3`` with and without its residual apart): its inputs and
-    its output.  The launches run and count as without it; ``check()``
-    holds each kept output against its plain version on the same inputs."""
+    ``int8_conv3x3`` and ``bf16_conv3x3`` with and without their residual
+    apart): its inputs and its output.  The launches run and count as
+    without it; ``check()`` holds each kept output against its plain
+    version on the same inputs."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+    from tecogan_tpu_torch.tools import bf16_layers
 
     class Recorder(TorchDispatchMode):
         def __init__(self):
@@ -1273,18 +1297,30 @@ def _recorder():
             out = func(*args, **(kwargs or {}))
             if func.namespace == "tecogan_tpu_torch":
                 key = func._opname
-                if key == "int8_conv3x3" and args[6] is not None:
+                if ((key == "int8_conv3x3" and args[6] is not None)
+                        or (key == "bf16_conv3x3" and args[4] is not None)):
                     key += "+res"
                 self.last[key] = (args, out)
             return out
 
+        @torch.inference_mode()
         def check(self) -> dict:
-            """The kernel agreement bars (conv_out_s2d, warp_s2d) or
-            bit-equality (int8) for each kept launch."""
+            """The kernel agreement bars (conv_out_s2d, warp_s2d,
+            ``bf16_layers.check``'s for the bf16 convs) or bit-equality
+            (int8) for each kept launch."""
             res = {}
             for key, (args, got) in self.last.items():
-                bars = None
-                if key == "conv_out_s2d":
+                bars, within = None, None
+                if key.startswith("bf16_"):
+                    up = key == "bf16_up2x"
+                    plain = bmod.bf16_up2x_reference if up else bmod.bf16_conv3x3_reference
+                    want = plain(*args)
+                    try:
+                        bf16_layers.check(got, want, *args, up)
+                        within = True
+                    except AssertionError:
+                        within = False
+                elif key == "conv_out_s2d":
                     feat, k, b = args  # the kernel rounds its weights to bf16
                     want = kmod.conv_out_s2d_reference(feat.float(), k.bfloat16().float(), b)
                     bars = (MAX_ERR, MEAN_ERR)
@@ -1298,8 +1334,12 @@ def _recorder():
                 err = (got.float() - want.float()).abs()
                 rec = {"rows": args[0].shape[1], "max": float(err.max()),
                        "mean": float(err.mean())}
-                rec["ok"] = (bool(torch.equal(got, want)) if bars is None
-                             else rec["max"] <= bars[0] and rec["mean"] <= bars[1])
+                if within is not None:
+                    rec["ok"] = within
+                elif bars is None:
+                    rec["ok"] = bool(torch.equal(got, want))
+                else:
+                    rec["ok"] = rec["max"] <= bars[0] and rec["mean"] <= bars[1]
                 res[key] = rec
             torch.cuda.synchronize()
             return res
@@ -1340,6 +1380,23 @@ def _frames_apart(got, want) -> dict:
     d = (got.float() - want.float()).abs()
     return {"max": float(d.max()), "mean": float(d.mean()), "psnr": psnr(got, want),
             "equal": bool(torch.equal(got, want))}
+
+
+def _modules_tail_clip(cfg, model, clip: torch.Tensor) -> torch.Tensor:
+    """The single-device fused clip with the generator tail on the
+    modules (cuDNN's convs and torch's bias, ReLU and skip-add passes): the
+    tail the spatial route keeps, where the single-device bf16 route runs
+    the fused conv kernels."""
+    from tecogan_tpu_torch.engine import inference
+    from tecogan_tpu_torch.engine.fused import fused_first_frame_s2d, fused_sr_step_s2d
+
+    route = inference._route(cfg)._replace(
+        first=fused_first_frame_s2d,
+        step=lambda m, carry, prev_lr, cur_lr: fused_sr_step_s2d(
+            m, carry, prev_lr, cur_lr, warp_group=cfg.warp_group))
+    with torch.inference_mode():
+        _, carries = inference._run(route, model, inference._dequant_in(clip))
+        return route.frames(carries)
 
 
 def _spatial_check(dev, mesh, main: bool, exact: bool) -> dict:
@@ -1389,6 +1446,7 @@ def _spatial_check(dev, mesh, main: bool, exact: bool) -> dict:
     res["kernels"] = recorder.check()
     if main:
         res["bf16"] = _frames_apart(sr, build_clip_inference(cfg)(model, clip))
+        res["bf16_modules"] = _frames_apart(sr, _modules_tail_clip(cfg, model, clip))
         res["int8"] = _frames_apart(sq, infer_q(model, qtail, clip))
     del sr, sq
     if exact:
@@ -1751,11 +1809,19 @@ def multi_phase(dev, smi) -> dict:
                     f"clip, 270x480 -> 1080x1920 T={SPATIAL_T}: max {d['max']:.3e} mean "
                     f"{d['mean']:.3e} PSNR {d['psnr']:.2f} dB, bit-equal {d['equal']}")
             print(line, flush=True)
-            if world == 1:
+            if world == 1 and route == "int8":
                 require(d["equal"], f"[{tag}] spatial {route} at world 1 is not bit-equal")
             else:
+                # the spatial route keeps the modules' bf16 tail; the
+                # single-device bf16 route runs the fused conv kernels
                 require(d["max"] <= SPATIAL_MAX and d["mean"] <= SPATIAL_MEAN
                         and d["psnr"] > PSNR_BAR_DB, f"[{tag}] spatial {route}: {d}")
+        d = sp["bf16_modules"]
+        print(f"[{tag}] spatial fused bf16, {world} rank(s) vs the single-device fused clip on "
+              f"the modules' tail: max {d['max']:.3e}, bit-equal {d['equal']}", flush=True)
+        if world == 1:
+            require(d["equal"], f"[{tag}] spatial bf16 at world 1 is not bit-equal to the "
+                    "single-device clip on the modules' tail")
         if "exact" in sp:
             d = sp["exact"]
             print(f"[{tag}] spatial exact fp32 (bug_parity), {world} ranks vs the "
@@ -1763,9 +1829,9 @@ def multi_phase(dev, smi) -> dict:
             require(d["max"] <= EXACT_SPATIAL_TOL, f"[{tag}] spatial exact: {d}")
         for r, rank in enumerate(ranks):
             s = rank["spatial"]
-            want_bf16 = {"conv_out_s2d": SPATIAL_T, "warp_s2d": SPATIAL_T - 1,
-                         "int8_conv3x3": 0, "int8_up2x": 0}
-            want_int8 = dict(want_bf16, int8_conv3x3=37 * SPATIAL_T, int8_up2x=2 * SPATIAL_T)
+            # the spatial bf16 route keeps the modules' tail
+            want_bf16 = _fused_launches(SPATIAL_T, "modules")
+            want_int8 = _fused_launches(SPATIAL_T, "int8")
             require(s["bf16_counts"] == want_bf16 and s["int8_counts"] == want_int8,
                     f"[{tag}] rank {r} launches {s['bf16_counts']} / {s['int8_counts']}")
             bad = {k: v for k, v in s["kernels"].items() if not v["ok"]}
@@ -1823,9 +1889,9 @@ def multi_phase(dev, smi) -> dict:
             require(s["bf16_equal"] and s["int8_equal"],
                     f"[{tag}] DP serving differs from single-device: {s}")
             for rank in ranks:
-                require(rank["dp_serve"]["bf16_counts"] == dict(
-                    conv_out_s2d=SPATIAL_T, warp_s2d=SPATIAL_T - 1, int8_conv3x3=0,
-                    int8_up2x=0), f"[{tag}] DP serving launches {rank['dp_serve']}")
+                require(rank["dp_serve"]["bf16_counts"] == _fused_launches(SPATIAL_T, "bf16")
+                        and rank["dp_serve"]["int8_counts"] == _fused_launches(SPATIAL_T, "int8"),
+                        f"[{tag}] DP serving launches {rank['dp_serve']}")
             launches[f"DP serving bf16, {world} ranks, a rank"] = s["bf16_counts"]
             launches[f"DP serving int8, {world} ranks, a rank"] = s["int8_counts"]
             print(f"[{tag}] DP serving, {world} streams one a rank: bf16 and int8 bit-equal "
@@ -2116,12 +2182,12 @@ def export_phase(dev, smi) -> dict:
                     f"live chunked loop (max {float((got.float() - want.float()).abs().max())})")
             require(rec["repeat_equal"], f"[{tag}] {name}: a second run differs")
             c = rec["launches"]
-            want_c = {"conv_out_s2d": padded, "warp_s2d": padded - 1,
-                      "int8_conv3x3": 37 * padded if name == "int8" else 0,
-                      "int8_up2x": 2 * padded if name == "int8" else 0}
+            want_c = _fused_launches(padded, "int8" if name == "int8" else "bf16")
             require(c == want_c, f"[{tag}] {name}: launches {c}, want {want_c}")
+            # conv_out_s2d, warp_s2d, the 3x3 conv with and without its
+            # residual, the transposed conv
             bad = {op: v for op, v in rec["last"].items() if not v["ok"]}
-            require(len(rec["last"]) == (5 if name == "int8" else 2) and not bad,
+            require(len(rec["last"]) == 5 and not bad,
                     f"[{tag}] {name}: last launches vs plain {rec['last']}")
             served[name] = c
             print(f"[{tag}] served {name} ({'u8' if name != 'f32' else 'f32'} wire"
@@ -2304,17 +2370,13 @@ def _finite_records(records: list, what: str) -> None:
 
 
 def _clip_launches(clips: list) -> dict:
-    """The hand kernels' launches of fused clips, ``(frames, runs, int8)``
-    at a time: one ``conv_out_s2d`` a frame, one ``warp_s2d`` a frame after
-    the first, whatever the batch; an int8 clip adds 37 ``int8_conv3x3``
-    and 2 ``int8_up2x`` a frame."""
-    out = dict.fromkeys(("conv_out_s2d", "warp_s2d", "int8_conv3x3", "int8_up2x"), 0)
-    for t, n, int8 in clips:
-        out["conv_out_s2d"] += t * n
-        out["warp_s2d"] += (t - 1) * n
-        if int8:
-            out["int8_conv3x3"] += 37 * t * n
-            out["int8_up2x"] += 2 * t * n
+    """The hand kernels' launches of fused clips at 16 resblocks, ``(frames,
+    runs, tail)`` at a time (``_fused_launches``'s a run, whatever the
+    batch)."""
+    out = dict.fromkeys(_fused_launches(1, "modules"), 0)
+    for t, n, tail in clips:
+        for k, v in _fused_launches(t, tail).items():
+            out[k] += v * n
     return out
 
 
@@ -2366,12 +2428,13 @@ def bench_phase(dev, smi) -> dict:
     torch.backends.cudnn.deterministic = False
     runs = bench.REPS + 1  # the warm-up and the timed runs
     # a clip of each route, and prepare's calibration between them
-    one_clip = _clip_launches([(bench.FRAMES, runs, False), (bench.CALIB_FRAMES, 1, False),
-                               (bench.FRAMES, runs, True)])
+    # (calibration runs the modules' tail)
+    one_clip = _clip_launches([(bench.FRAMES, runs, "bf16"), (bench.CALIB_FRAMES, 1, "modules"),
+                               (bench.FRAMES, runs, "int8")])
     programs = (
         ("bench", bench.main, one_clip),
         ("bench_serving", bench_serving.main, _clip_launches(
-            [(bench_serving.stream_frames(bench.FRAMES, b), runs, False)
+            [(bench_serving.stream_frames(bench.FRAMES, b), runs, "bf16")
              for b in bench_serving.BATCHES])),
         ("bench_quant", bench_quant.main, one_clip),
         ("bench_train", bench_train.main, _clip_launches([])),
@@ -2411,7 +2474,7 @@ def bench_phase(dev, smi) -> dict:
         _reset_counts()
         agree = bench_serving.streams_alone(cfg, model, clip)
         got = _kernel_counts()
-        want = _clip_launches([(8, 1, False), (8, BENCH_STREAMS, False)])
+        want = _clip_launches([(8, 1, "bf16"), (8, BENCH_STREAMS, "bf16")])
         infer = build_clip_inference(cfg)
         crossed = _crossed_carry_clip(model, clip)
         control_db = [psnr(crossed[b:b + 1], infer(model, clip[b:b + 1]))
@@ -2522,6 +2585,102 @@ def conv_f32_phase(dev, smi, gen, weight, bias, earlier=None) -> dict:
     return rec
 
 
+# phase 18's masked edges of the bf16 kernels' tiles (2 rows, or 1 for
+# up2x at Cin 128, by 64 columns): (transposed, B, H, W, Cin, Cout, bias,
+# relu, residual), W below 64, W = 64k + 1, H = 1, B = 3, Cin != Cout
+BF16_EDGE_SHAPES = [(False, 2, 135, 240, 64, 64, True, True, True),
+                    (False, 1, 37, 53, 128, 64, True, True, True),
+                    (False, 1, 5, 40, 64, 64, True, False, True),
+                    (False, 2, 3, 129, 128, 128, False, False, True),
+                    (False, 1, 1, 130, 128, 64, True, True, False),
+                    (False, 3, 7, 70, 64, 128, False, True, True),
+                    (True, 2, 37, 53, 64, 64, True, True, True),
+                    (True, 1, 5, 40, 128, 64, True, True, True),
+                    (True, 2, 1, 65, 64, 128, False, False, True),
+                    (True, 3, 4, 129, 64, 64, True, False, True)]
+
+
+def bf16_conv_phase(dev, smi) -> list:
+    """Phase 18 (see the module's docstring); returns the two kernels'
+    records, their times a frame's (the launches are set by the caller)."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine.inference import (build_clip_inference,
+                                                    build_quantized_clip_inference)
+    from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
+                                                state_from_params)
+    from tecogan_tpu_torch.engine.train import build_train_step
+    from tecogan_tpu_torch.data.synthetic import synthetic_scene_batch
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
+    from tecogan_tpu_torch.tools import bf16_layers
+
+    recs = {up: {"name": "bf16_up2x" if up else "bf16_conv3x3", "route": "cuda",
+                 "source": "tecogan_tpu_torch/csrc/bf16_conv.cu",
+                 "replaces": ("cuDNN's conv + torch's bias, ReLU and skip-add passes, for "
+                              "tecogan_tpu/models/generator.py's XLA convs"),
+                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "bound_by": [], "library_ms": 0.0, "layers": []} for up in (False, True)}
+    for i, (up, B, H, W, cin, cout, bias, relu, residual) in enumerate(BF16_EDGE_SHAPES):
+        x, w, b, res = bf16_layers.layer_inputs(dev, up, (B, H, W, cin, cout), 300 + i, bias)
+        res = res if residual else None
+        kernel, plain = ((bmod.bf16_up2x_cuda, bmod.bf16_up2x_reference) if up else
+                         (bmod.bf16_conv3x3_cuda, bmod.bf16_conv3x3_reference))
+        got = kernel(x, w, b, relu, res)
+        torch.cuda.synchronize()
+        rec = bf16_layers.check(got, plain(x, w, b, relu, res), x, w, b, relu, res, up)
+        recs[up]["max_abs_err"] = max(recs[up]["max_abs_err"], rec["max_abs_err"])
+        print(f"[18] {recs[up]['name']} {(B, H, W, cin, cout)} bias {bias} relu {relu} "
+              f"residual {residual}: max gap {rec['max_abs_err']:.3e}, "
+              f"{rec['differ_share']:.3%} differ from plain (within the bars)", flush=True)
+    rows = bf16_layers.measure(dev)
+    for r in rows:
+        print(f"[18] {r['layer']} {tuple(r['shape'])} x{r['launches_a_frame']}: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.1%}) | plain chain {r['plain_ms']:.4f} ms | cuDNN conv "
+              f"+ bias + ReLU {r['cudnn_bias_relu_ms']:.4f} ms | max gap {r['max_abs_err']:.3e}, "
+              f"{r['differ_share']:.3%} differ | {smi}", flush=True)
+        rec, n = recs[r["kernel"] == "bf16_up2x"], r["launches_a_frame"]
+        for key, src in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                         ("library_ms", "cudnn_bias_relu_ms")):
+            rec[key] += r[src] * n
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        rec["bound_by"] = sorted(set(rec["bound_by"]) | {r["bound_by"]})
+        rec["layers"].append(r)
+    print(f"[18] {bf16_layers.summary(rows)} | {smi}", flush=True)
+    for rec in recs.values():
+        rec["bound_by"] = " and ".join(rec["bound_by"])
+
+    cfg = TecoConfig(num_resblock=16, precision="fp32", bug_parity=False, use_pallas=True)
+    params = init_generator(cfg, torch.Generator().manual_seed(0))
+    clip = torch.from_numpy(np.random.default_rng(0).random((1, 3, 12, 20, 3), np.float32))
+    routes = {}
+    _reset_counts()
+    build_clip_inference(cfg)(_model_on(cfg, params, dev), clip.to(dev))
+    routes["fp32 fused, 3 frames"] = _kernel_counts()
+    q16 = cfg.replace(precision="bf16")
+    model = _model_on(q16, params, dev)
+    prepare, qinfer = build_quantized_clip_inference(q16)
+    qtail = prepare(model, params, clip, frames=2)
+    _reset_counts()
+    qinfer(model, qtail, clip.to(dev))
+    routes["int8, 3 frames"] = _kernel_counts()
+    train = TecoConfig(crop_size=8, RNN_N=9, num_resblock=2, discrim_resblocks=1,
+                       discrim_channels=16, batch_size=2, precision="bf16")
+    g = torch.Generator().manual_seed(0)
+    state = state_from_params(train, init_generator(train, g), *init_discriminator(train, g),
+                              device=dev)
+    lr, hr = synthetic_scene_batch(2, 9, 8, seed=0)
+    _reset_counts()
+    build_train_step(train, device=dev)(state, torch.from_numpy(lr), torch.from_numpy(hr))
+    torch.cuda.synchronize()
+    routes["bf16 train step"] = _kernel_counts()
+    print(f"[18] launches: {routes}", flush=True)
+    require(routes == {"fp32 fused, 3 frames": _fused_launches(3, "modules"),
+                       "int8, 3 frames": _fused_launches(3, "int8"),
+                       "bf16 train step": dict.fromkeys(_fused_launches(1, "modules"), 0)},
+            f"[18] launches {routes}")
+    return [recs[False], recs[True]]
+
+
 def main(parent=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2534,6 +2693,7 @@ def main(parent=None) -> None:
         build_chunked_inference, build_clip_inference, build_stream_inference)
     from tecogan_tpu_torch.engine.state import init_generator, model_defs
     from tecogan_tpu_torch.ops.image import transfer_to_uint8
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
     from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
     from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
     from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
@@ -2558,7 +2718,8 @@ def main(parent=None) -> None:
     print(f"[1] image I/O modules importable: {found}", flush=True)
 
     # -- 2. build: one nvcc a source, started together
-    jobs = {"conv_out_s2d": kmod.build, "warp_s2d": wmod.build, "int8_conv": qmod.build}
+    jobs = {"conv_out_s2d": kmod.build, "warp_s2d": wmod.build, "int8_conv": qmod.build,
+            "bf16_conv": bmod.build}
     if parent is not None:  # the earlier f32 design, timed in phase 3
         jobs["conv_out_s2d (earlier tree)"] = lambda: load_source(
             pathlib.Path(parent) / "tecogan_tpu_torch" / "csrc" / "conv_out_s2d.cu")
@@ -2576,6 +2737,12 @@ def main(parent=None) -> None:
 
     def reset_counts():
         kmod.launch_count = wmod.launch_count = 0
+        bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+
+    def counts():
+        """conv_out_s2d, warp_s2d, bf16_conv3x3 and bf16_up2x launches."""
+        return (kmod.launch_count, wmod.launch_count, bmod.conv3x3_launch_count,
+                bmod.up2x_launch_count)
 
     # -- 3. conv_out_s2d against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2636,21 +2803,22 @@ def main(parent=None) -> None:
     out = infer(model, clip)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = (kmod.launch_count, wmod.launch_count)
+    launches = counts()
     T = CLIP[1]
     require(tuple(out.shape) == (1, T, 1080, 1920, 3), f"output {tuple(out.shape)}")
     require(bool(torch.isfinite(out).all()), "non-finite output")
     require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
-    require(launches == (T, T - 1),
-            f"conv_out_s2d / warp_s2d launched {launches} times for {T} frames")
+    require(launches == (T, T - 1, 37 * T, 2 * T),
+            f"conv_out_s2d / warp_s2d / bf16_conv3x3 / bf16_up2x launched {launches} times "
+            f"for {T} frames")
     conv["launches"] = launches[0]
     fps = T / secs
     tflops = fps * 2.0 * generator_macs_per_frame(CLIP[2], CLIP[3], 16) / 1e12
     print(f"[4] 270p->1080p T={T} full width bf16: {fps:.3f} fps "
           f"({secs * 1e3:.3f} ms a clip), {tflops:.3f} TFLOP/s, MFU "
           f"{tflops * 1e12 / H100_PEAK_BF16_FLOPS:.4%} of 989 TFLOP/s | "
-          f"launches conv_out_s2d {launches[0]}, warp_s2d {launches[1]} | {smi}",
-          flush=True)
+          f"launches conv_out_s2d {launches[0]}, warp_s2d {launches[1]}, bf16_conv3x3 "
+          f"{launches[2]}, bf16_up2x {launches[3]} | {smi}", flush=True)
     del out
 
     # the fp32 fused route (the precision reference, TF32 off) on the same
@@ -2667,13 +2835,14 @@ def main(parent=None) -> None:
     out = infer32(model32, clip)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches32 = (kmod.launch_count, wmod.launch_count)
+    launches32 = counts()
     require(tuple(out.shape) == (1, T, 1080, 1920, 3) and out.dtype == torch.float32,
             f"fp32 output {tuple(out.shape)} {out.dtype}")
     require(bool(torch.isfinite(out).all()), "non-finite fp32 output")
     require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "fp32 output outside [0, 1]")
-    require(launches32 == (T, T - 1),
-            f"fp32 route: conv_out_s2d / warp_s2d launched {launches32} times for {T} frames")
+    require(launches32 == (T, T - 1, 0, 0),
+            f"fp32 route: conv_out_s2d / warp_s2d / bf16_conv3x3 / bf16_up2x launched "
+            f"{launches32} times for {T} frames")
     conv32["launches"] = launches32[0]
     frame_ms = secs * 1e3 / T
     print(f"[4] 270p->1080p T={T} full width fp32 fused (TF32 off): {T / secs:.3f} fps "
@@ -2772,7 +2941,7 @@ def main(parent=None) -> None:
     chunked(model, clip40, chunk=CHUNK, sink=windows.append)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = (kmod.launch_count, wmod.launch_count)
+    chunk_counts = counts()
     peak40 = torch.cuda.max_memory_allocated(dev)
     sizes = [w.shape[1] for w in windows]
     require(sum(sizes) == CHUNK_T and max(sizes) <= CHUNK,
@@ -2780,7 +2949,8 @@ def main(parent=None) -> None:
     require(all(w.dtype == torch.uint8 for w in windows), "sink windows not uint8")
     require(torch.equal(torch.cat(windows, dim=1), want),
             "chunked u8 output differs from transfer_to_uint8 of the one-shot clip")
-    require(counts == (CHUNK_T, CHUNK_T - 1), f"chunked launches {counts}")
+    require(chunk_counts == (CHUNK_T, CHUNK_T - 1, 37 * CHUNK_T, 2 * CHUNK_T),
+            f"chunked launches {chunk_counts}")
     del want, windows
     frames_seen = []
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2792,7 +2962,8 @@ def main(parent=None) -> None:
             f"peak device memory {peak80} at T={LONG_T} vs {peak40} at T={CHUNK_T}")
     print(f"[7] chunked T={CHUNK_T} chunk {CHUNK} u8 in/out, sink windows {sizes}: "
           f"bit-equal to one-shot | {CHUNK_T / secs:.3f} fps ({secs * 1e3:.3f} ms) | "
-          f"launches conv_out_s2d {counts[0]}, warp_s2d {counts[1]} | peak device "
+          f"launches (conv_out_s2d, warp_s2d, bf16_conv3x3, bf16_up2x) {chunk_counts} | "
+          f"peak device "
           f"memory {peak40 / 2**20:.1f} MiB at T={CHUNK_T}, {peak80 / 2**20:.1f} MiB at "
           f"T={LONG_T} | {smi}", flush=True)
 
@@ -2810,14 +2981,15 @@ def main(parent=None) -> None:
         torch.cuda.synchronize()
         lat_ms.append((time.perf_counter() - t0) * 1e3)
         got.append(frame)
-    counts = (kmod.launch_count, wmod.launch_count)
+    stream_counts = counts()
     torch.backends.cudnn.deterministic = False
     require(torch.equal(torch.stack(got, dim=1), want), "stream differs from clip")
-    require(counts == (STREAM_T, STREAM_T - 1), f"stream launches {counts}")
+    require(stream_counts == (STREAM_T, STREAM_T - 1, 37 * STREAM_T, 2 * STREAM_T),
+            f"stream launches {stream_counts}")
     print(f"[8] stream {STREAM_T} frames: bit-equal to the clip route | frame latency "
           f"p50 {statistics.median(lat_ms):.3f} ms, max {max(lat_ms):.3f} ms "
-          f"(line {FRAME_BUDGET_MS:.1f} ms) | launches conv_out_s2d {counts[0]}, "
-          f"warp_s2d {counts[1]} | {smi}", flush=True)
+          f"(line {FRAME_BUDGET_MS:.1f} ms) | launches (conv_out_s2d, warp_s2d, "
+          f"bf16_conv3x3, bf16_up2x) {stream_counts} | {smi}", flush=True)
 
     train_phases(dev, smi)
 
@@ -2831,10 +3003,14 @@ def main(parent=None) -> None:
     multi = multi_phase(dev, smi)
     exported = export_phase(dev, smi)
     benched = bench_phase(dev, smi)
+    bf16_recs = bf16_conv_phase(dev, smi)
+    # the bf16 fused conv kernels' launches: the full-width bf16 clip's (phase 4)
+    bf16_recs[0]["launches"], bf16_recs[1]["launches"] = launches[2], launches[3]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = [{k: rec[k] for k in keys} for rec in (conv, warp, *int8_recs)]
+    records += [{k: rec[k] for k in keys + ("layers",)} for rec in bf16_recs]
     for rec in records:  # phase 15's paths: each kernel's launches a rank
         rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
         rec["launches_exported"] = {path: counts[rec["name"]] for path, counts in exported.items()}

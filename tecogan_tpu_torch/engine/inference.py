@@ -6,10 +6,11 @@ output by the pseudo-flow, packs it space-to-depth, concatenates the next
 LR frame and runs the generator.  The JAX ``lax.scan`` becomes a Python
 loop over T and ``lax.cond`` a Python branch; the carry stays on the
 model's device.  All three entry points run the same per-frame functions
-(:func:`_route`), so they agree bit for bit.  The int8 (W8A8) serving
-mode (:func:`build_quantized_clip_inference`, and the chunked loop with a
-``qtail``) is the fused route with the generator tail swapped for the
-quantized one (engine/quant.py).
+(:func:`_route`), so they agree bit for bit.  On the fused route a bf16
+model runs its tail on the fused conv kernels (engine/bf16_tail.py).  The
+int8 (W8A8) serving mode (:func:`build_quantized_clip_inference`, and the
+chunked loop with a ``qtail``) is the fused route with the generator tail
+swapped for the quantized one (engine/quant.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.image import (deprocess, start_host_copy, transfer_dequantize_f32,
 from ..ops.space import space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
 from ..utils.spans import span
+from .bf16_tail import tail_features_bf16
 from .fused import fused_first_frame_s2d, fused_sr_step_s2d, s2d_to_frame
 from .quant import calibrate_clip, quantize_tail, tail_features_int8
 from .state import model_defs, resolve_device
@@ -76,14 +78,26 @@ def _route(cfg: TecoConfig) -> _Route:
     warp per :func:`engine.fused.fused_sr_step_s2d`); every other setting
     is the exact route, with the fp16 grid rounding under ``bug_parity``.
     ``cfg.gather_unroll_streams`` only picks a TPU gather lowering, so it
-    has nothing to select here."""
+    has nothing to select here.
+
+    On the fused route the model's compute dtype picks the tail: a bf16
+    model runs :func:`engine.bf16_tail.tail_features_bf16` (each conv with
+    its bias, ReLU and skip add one fused op), any other its modules."""
     if cfg.use_pallas and not cfg.bug_parity:
+        def tail(model):
+            if model.dtype != torch.bfloat16:
+                return None
+            return lambda net: tail_features_bf16(model, net)
+
+        def fused_first(model, lr0):
+            return fused_first_frame_s2d(model, lr0, tail(model))
+
         def fused_step(model, carry, prev_lr, cur_lr):
-            return fused_sr_step_s2d(model, carry, prev_lr, cur_lr,
+            return fused_sr_step_s2d(model, carry, prev_lr, cur_lr, tail(model),
                                      warp_group=cfg.warp_group)
 
         return _Route(
-            first=fused_first_frame_s2d, step=fused_step,
+            first=fused_first, step=fused_step,
             frames=lambda s2d: s2d_to_frame(s2d).to(
                 torch.float32, memory_format=torch.contiguous_format),
             carry_shape=lambda B, H, W: (B, H, W, 48),

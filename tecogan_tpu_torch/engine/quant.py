@@ -57,6 +57,14 @@ def _layer_names(num_resblock: int) -> list:
                     "trunk_rb2/Conv_1", "up2", "conv_hr"]
 
 
+def forward_kernel(w: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """A tail layer's weight as the tail kernels take it, ``(Cout, 3, 3,
+    Cin)``: the kernel the JAX layer convolves with (for a transposed layer
+    the ``ConvTranspose2d`` weight ``(Cin, Cout, kh, kw)`` flipped), from
+    the module's OIHW or IOHW weight."""
+    return w.flip(2, 3).permute(1, 2, 3, 0) if transposed else w.permute(0, 2, 3, 1)
+
+
 def _conv_layers(model: Generator) -> Dict[str, _Layer]:
     """The tail's conv layers by JAX name, in execution order."""
     return {n: _Layer(model.get_submodule(n.replace("/", ".")), n in GENERATOR_TRANSPOSED)
@@ -125,12 +133,7 @@ def quantize_tail(params, act_maxes: Mapping[str, torch.Tensor],
     q: QTail = {}
     for name in names:
         key = name.replace("/", ".")
-        w = sd[f"{key}.weight"].cpu()
-        if name in GENERATOR_TRANSPOSED:
-            # ConvTranspose2d (I, O, kh, kw) -> the forward kernel (O, kh, kw, I)
-            w = w.flip(2, 3).permute(1, 2, 3, 0)
-        else:
-            w = w.permute(0, 2, 3, 1)  # OIHW -> (O, kh, kw, I)
+        w = forward_kernel(sd[f"{key}.weight"].cpu(), name in GENERATOR_TRANSPOSED)
         ws = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
         wq = torch.round(w / ws[:, None, None, None]).to(torch.int8)
         m = torch.clamp_min(torch.as_tensor(act_maxes[name], dtype=torch.float32).cpu(),

@@ -21,9 +21,12 @@ from tecogan_tpu_torch.engine.state import (init_discriminator, init_generator,
 from tecogan_tpu_torch.engine.train import build_train_step
 from tecogan_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from tecogan_tpu_torch.engine.quant import qtail_to, quantize_tail, tail_features_int8
+from tecogan_tpu_torch.engine.bf16_tail import tail_features_bf16
+from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
 from tecogan_tpu_torch.ops.kernels import conv_out_s2d as kmod
 from tecogan_tpu_torch.ops.kernels import int8_conv as qmod
 from tecogan_tpu_torch.ops.kernels import warp_s2d as wmod
+from tecogan_tpu_torch.tools import bf16_layers
 from tecogan_tpu_torch.tools.int8_layers import layer_inputs
 from tecogan_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                              generator_state_dict_from_jax)
@@ -731,7 +734,7 @@ def test_kernels_on_halo_blocks_are_the_full_frames_rows(cuda, rank):
 
 
 def test_custom_ops_on_the_card(cuda):
-    """The four custom ops on CUDA tensors: ``torch.library.opcheck``
+    """The six custom ops on CUDA tensors: ``torch.library.opcheck``
     (the fake's shape, dtype and strides against the kernel's output,
     the schema, no autograd registered), each launch counted once and
     its output the wrapper's."""
@@ -753,6 +756,12 @@ def test_custom_ops_on_the_card(cuda):
                          (qmod, "conv3x3_launch_count")),
         "int8_up2x": ((x, *q, None, False, rand(1, 24, 40, 64, dtype=torch.bfloat16)),
                       qmod.int8_up2x_cuda, (qmod, "up2x_launch_count")),
+        "bf16_conv3x3": ((x, rand(128, 3, 3, 64, dtype=torch.bfloat16) * 0.1,
+                          rand(128, dtype=torch.bfloat16), True, None),
+                         bmod.bf16_conv3x3_cuda, (bmod, "conv3x3_launch_count")),
+        "bf16_up2x": ((x, rand(64, 3, 3, 64, dtype=torch.bfloat16) * 0.1, None, False,
+                       rand(1, 24, 40, 64, dtype=torch.bfloat16)),
+                      bmod.bf16_up2x_cuda, (bmod, "up2x_launch_count")),
     }
     for name, (args, wrapper, (mod, counter)) in cases.items():
         op = getattr(torch.ops.tecogan_tpu_torch, name).default
@@ -763,3 +772,148 @@ def test_custom_ops_on_the_card(cuda):
         torch.cuda.synchronize()
         assert getattr(mod, counter) == 1, name
         assert got.is_contiguous() and torch.equal(got, wrapper(*args)), name
+
+
+# (B, H, W, Cin, Cout, bias, relu, residual) of the bf16 fused kernels: the
+# main path's 3x3 layers at 270p -> 1080p (LR resblock Conv_0 and Conv_1 +
+# skip, the 540 x 960 trunk, conv_hr at 1080p), then LR 135 x 240 at B=2,
+# 37 x 53 with odd H and W in both channel counts, and the edges of the
+# tiles (2 rows, or 1 for up2x at Cin 128, by 64 columns): W below 64,
+# W = 64k + 1, W not a multiple of 64, H = 1, B = 3, Cin != Cout both ways
+BF16_CONV_SHAPES = [(1, 270, 480, 64, 64, True, True, False),
+                    (1, 270, 480, 64, 64, False, False, True),
+                    (1, 540, 960, 64, 64, True, True, False),
+                    (1, 540, 960, 64, 64, False, False, False),
+                    (1, 540, 960, 64, 128, True, True, False),
+                    (1, 540, 960, 128, 128, False, False, False),
+                    (1, 1080, 1920, 128, 64, True, True, False),
+                    (2, 135, 240, 64, 64, True, True, True), (1, 37, 53, 64, 128, False, False, False),
+                    (1, 37, 53, 128, 64, True, True, True), (1, 5, 40, 64, 64, True, False, True),
+                    (2, 3, 129, 128, 128, False, False, True), (1, 1, 130, 128, 64, True, True, False),
+                    (3, 7, 70, 64, 128, False, True, True)]
+# up1, up2, odd shapes in both channel counts and the tile edges as above
+BF16_UP_SHAPES = [(1, 270, 480, 64, 64, True, True, False),
+                  (1, 540, 960, 128, 128, True, True, False),
+                  (2, 37, 53, 64, 64, True, True, True), (1, 37, 53, 128, 128, False, False, False),
+                  (1, 5, 40, 128, 64, True, True, True), (2, 1, 65, 64, 128, False, False, True),
+                  (3, 4, 129, 64, 64, True, False, True), (1, 3, 70, 128, 64, False, True, True)]
+
+
+@pytest.mark.parametrize("up,shape", [(False, s) for s in BF16_CONV_SHAPES]
+                         + [(True, s) for s in BF16_UP_SHAPES])
+def test_bf16_kernel_matches_plain(cuda, up, shape):
+    """Each bf16 fused kernel against its plain version (cuDNN's conv, then
+    torch's bias, ReLU and skip add) on the same inputs: within the bars of
+    ``tools/bf16_layers.check`` (the f32 sums' order alone: one bf16 ulp a
+    rounding), one launch."""
+    B, H, W, cin, cout, bias, relu, residual = shape
+    x, w, b, res = bf16_layers.layer_inputs(cuda, up, (B, H, W, cin, cout), 0, bias)
+    res = res if residual else None
+    kernel, plain = ((bmod.bf16_up2x_cuda, bmod.bf16_up2x_reference) if up else
+                     (bmod.bf16_conv3x3_cuda, bmod.bf16_conv3x3_reference))
+    bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+    got = kernel(x, w, b, relu, res)
+    torch.cuda.synchronize()
+    assert (bmod.conv3x3_launch_count, bmod.up2x_launch_count) == ((0, 1) if up else (1, 0))
+    print(bf16_layers.check(got, plain(x, w, b, relu, res), x, w, b, relu, res, up))
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_bf16_kernel_reads_inputs_made_just_before(cuda, up):
+    """Under programmatic dependent launch every input may be written by
+    the kernel just before on the stream: x, the weights, the bias or the
+    residual made on the card right before each launch give the plain
+    version's output."""
+    x, w, b, res = bf16_layers.layer_inputs(cuda, up, (1, 40, 200, 128, 128), 9)
+    kernel, plain = ((bmod.bf16_up2x_cuda, bmod.bf16_up2x_reference) if up else
+                     (bmod.bf16_conv3x3_cuda, bmod.bf16_conv3x3_reference))
+    for i in range(8):
+        # the last kernel before each launch writes one of the inputs
+        last = (x, w, b, res)[i % 4]
+        last.copy_(last.flip(0) * (-1.0 if i % 2 else 1.0))
+        got = kernel(x, w, b, True, res)
+        bf16_layers.check(got, plain(x, w, b, True, res), x, w, b, True, res, up)
+
+
+def test_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    x, w, b, res = bf16_layers.layer_inputs(cuda, False, (1, 6, 10, 64, 64), 0)
+    bad = {
+        "float32 x": (x.float(), w.float(), b.float(), False, None),
+        "float16 x": (x.half(), w, b, False, None),
+        "32 channels": (x[..., :32].contiguous(), w[..., :32].contiguous(), b, False, None),
+        "96 output channels": (x, w[:32].repeat(3, 1, 1, 1), None, False, None),
+        "NCHW memory": (x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w, b,
+                        False, None),
+        "float32 bias": (x, w, b.float(), False, None),
+        "CPU weights": (x, w.cpu(), b, False, None),
+        "float32 residual": (x, w, b, False, res.float()),
+        "misaligned residual": (x, w, b, False,
+                                torch.empty(res.numel() + 8, dtype=res.dtype, device=cuda)
+                                [1:1 + res.numel()].view(res.shape)),
+        "CPU x": (x.cpu(), w, b, False, None),
+    }
+    bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+    for what, args in bad.items():
+        for fn in (bmod.bf16_conv3x3_cuda, bmod.bf16_up2x_cuda):
+            with pytest.raises(ValueError):
+                fn(*args)
+    assert (bmod.conv3x3_launch_count, bmod.up2x_launch_count) == (0, 0)
+
+
+def test_bf16_tail_on_the_card_matches_the_modules(cuda):
+    """The bf16 tail on the fused kernels against the modules' tail
+    (cuDNN and torch's passes) on the card, same bf16 weights and input:
+    they differ by each layer's order of summation, one bf16 ulp where a
+    sum rounds the other way, carried through 9 layers: relative L2 gap
+    below 2**-6."""
+    cfg = TecoConfig(num_resblock=2, precision="bf16", bug_parity=False)
+    model, _, _ = _models(cuda, cfg)
+    net = torch.rand((2, 12, 20, 64), generator=torch.Generator().manual_seed(4)).bfloat16()
+    with torch.inference_mode():
+        got = tail_features_bf16(model, net.to(cuda)).float()
+        want = model.tail_features(net.to(cuda)).float()
+    assert got.shape == want.shape == (2, 48, 80, 64)
+    assert float((got - want).norm() / want.norm()) < 2.0 ** -6
+
+
+def test_bf16_route_launches_39_kernels_a_frame_and_none_a_train_step(cuda):
+    """The bf16 fused route at 16 resblocks (37 bf16_conv3x3 and 2
+    bf16_up2x a frame) through the clip, the chunked loop and the stream;
+    the fp32 and int8 routes none; a bf16 train step none."""
+    cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False)
+    model, _, sd = _models(cuda, cfg)
+    clip = torch.from_numpy(
+        np.random.default_rng(5).random((1, 3, 12, 20, 3), np.float32) * CLIP_RANGE)
+
+    def counts():
+        return bmod.conv3x3_launch_count, bmod.up2x_launch_count
+
+    torch.backends.cudnn.deterministic = True  # conv_in, compared bit for bit
+    try:
+        bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+        want = build_clip_inference(cfg)(model, clip.to(cuda))
+        assert counts() == (37 * 3, 2 * 3)
+        bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+        init_fn, step_fn = build_stream_inference(cfg)
+        state = init_fn((1, 12, 20, 3), device=cuda)
+        for t in range(3):
+            state, frame = step_fn(model, state, clip[:, t])
+            assert torch.equal(frame, want[:, t])
+        assert counts() == (37 * 3, 2 * 3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+    cfg32 = cfg.replace(precision="fp32")
+    model32 = model_defs(cfg32, device=cuda)
+    model32.load_state_dict(sd)
+    build_clip_inference(cfg32)(model32.eval(), clip.to(cuda))
+    prepare, infer = build_quantized_clip_inference(cfg)
+    infer(model, prepare(model, sd, clip, frames=2), clip.to(cuda))
+    assert counts() == (0, 0)
+    train = TINY_TRAIN.replace(precision="bf16")
+    state = state_from_params(train, *_train_weights(train), device=cuda)
+    step = build_train_step(train, device=cuda)
+    for lr, hr in _train_batches(train, 1):
+        step(state, lr, hr)
+    torch.cuda.synchronize()
+    assert counts() == (0, 0)

@@ -1,8 +1,8 @@
 """The system under test, and all the benchmark takes from it: the serving
 generator of ``tecogan_tpu_torch`` with the benchmark's weights, its
 chunked loop (archive traffic), its stream step (live traffic) and, for an
-int8 configuration, its calibration.  The only module of the benchmark
-that imports the program.
+int8 configuration, its calibration.  The only module of this
+architecture that imports the program.
 """
 
 from __future__ import annotations

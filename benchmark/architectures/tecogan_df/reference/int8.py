@@ -15,7 +15,7 @@ One quantized layer ``name`` with calibrated maximum ``m`` (the largest
 * ``y = conv(xq, wq) * (m / L * ws) + bias``, then ReLU and the residual
   add where the layer has them.
 
-``levels`` = 7 gives the int4 control of ``benchmark/reference/controls.py``.
+``levels`` = 7 gives the int4 control of ``controls.py`` beside this file.
 """
 
 from __future__ import annotations

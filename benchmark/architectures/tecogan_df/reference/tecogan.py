@@ -1,9 +1,11 @@
-"""Plain float32 reference of the served TecoGAN generator and its
-recurrence, written from the published description (Chu et al. 2020,
-arXiv:1811.09393, FRVSR-style recurrent generator) and the route's stated
-semantics.  It imports nothing of the program under test and uses no hand
-kernel: only ``torch`` convolutions, ``F.grid_sample`` and
-``F.interpolate``.
+"""Plain float32 reference of the served generator and its recurrence:
+dwight-foster/Pytorch-TecoGAN's modified TecoGAN generator (that repo's
+``code/models.py:61-86``: TecoGAN, Chu et al. 2020, arXiv:1811.09393,
+with FNet and the bilinear skip removed and a 64 -> 128 trunk block, a
+128 -> 128 ``up2`` and a 128 -> 64 ``conv_hr`` added), written from that
+code and the route's stated semantics.  It imports nothing of the
+program under test and uses no hand kernel: only ``torch`` convolutions,
+``F.grid_sample`` and ``F.interpolate``.
 
 One frame, NCHW inside, NHWC at the edges:
 
@@ -22,9 +24,9 @@ One frame, NCHW inside, NHWC at the edges:
 * the served uint8 frame: ``clamp(x * 255, 0, 255)`` truncated.
 
 ``quant`` hooks let a control compute the same network in a lower
-precision (``benchmark/reference/controls.py``); the reference itself
-passes none.  Call :func:`exact_float32` before running it on a card, so
-that no matrix product runs in TF32.
+precision (``controls.py`` beside this file); the reference itself passes
+none.  Call ``benchmark.reference.frames.exact_float32`` before running
+it on a card, so that no matrix product runs in TF32.
 """
 
 from __future__ import annotations
@@ -34,25 +36,10 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-INV_255 = torch.tensor(1.0 / 255.0, dtype=torch.float32).item()
+from benchmark.reference.frames import INV_255, dequant, to_u8
+
 Params = Dict[str, torch.Tensor]
 Quant = Optional[Callable[[torch.Tensor, str], torch.Tensor]]
-
-
-def exact_float32() -> None:
-    """No TF32 in convolutions or matrix products."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def dequant(lr_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 (..., H, W, 3) -> float32 [0, 1]."""
-    return lr_u8.to(torch.float32) * INV_255
-
-
-def to_u8(frame: torch.Tensor) -> torch.Tensor:
-    """float [0, 1] -> uint8 by ``clamp(x * 255, 0, 255)`` truncated."""
-    return (frame.to(torch.float32) * 255.0).clamp(0.0, 255.0).to(torch.uint8)
 
 
 def carry_to_frame(carry: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """The check of ``correct``: what the window served against the plain
-reference of ``benchmark/reference/``, run once the window has closed and
-the program's weights are freed.  Every number is a gap in uint8 levels
+reference of the configuration's architecture
+(``benchmark/architectures/<name>/``, through ``hooks``, ``run_clip``,
+``frame`` and ``carry_to_frame``), run once the window has closed and the
+program's weights are freed.  Every number is a gap in uint8 levels
 of the served 1080p frames, so lower is better, and each has a limit of
 its own (``benchmark/limits/<cell>.json``, with the readings it was set
 from).
@@ -24,9 +26,9 @@ from).
   (``handoff_mae_worst``, the mean |gap| between the two; the served
   frame is the carry converted, so this is exact).
 
-``numbers(..., control=True)`` puts the control of
-``benchmark/reference/controls.py`` in the program's place and reads the
-same numbers of its frames.
+``numbers(..., control=True)`` puts the architecture's control (its
+``hooks(..., control=True)``) in the program's place and reads the same
+numbers of its frames.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Dict
 
 import torch
 
-from .reference import controls, int8, tecogan as ref
+from .reference.frames import dequant, exact_float32, to_u8
 
 FAR = 8
 
@@ -47,25 +49,13 @@ def gap(served: torch.Tensor, want: torch.Tensor):
     return float(d.float().mean()), float((d > FAR).float().mean()) * 100.0
 
 
-def _hooks(cfg: dict, params, calib, control: bool):
-    """(quant, tail_conv) of the reference, or of its control."""
-    nrb = cfg["num_resblock"]
-    if cfg["int8_tail"]:
-        if control:
-            return None, controls.int4_tail(params, calib[None], cfg["calibration_frames"], nrb)
-        maxes = int8.calibrate(params, calib[None], cfg["calibration_frames"], nrb)
-        return None, int8.tail_conv_from(int8.quantize(params, maxes))
-    return (controls.fp8_quant if control else None), None
-
-
 @torch.no_grad()
-def numbers(mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, device,
+def numbers(arch, mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, device,
             control: bool = False) -> Dict[str, float]:
-    ref.exact_float32()
-    nrb = cfg["num_resblock"]
-    quant, tail = _hooks(cfg, params, calib, False)
+    exact_float32()
+    hooks = arch.hooks(cfg, params, calib, False)
     if control:
-        c_quant, c_tail = _hooks(cfg, params, calib, True)
+        c_hooks = arch.hooks(cfg, params, calib, True)
     out: Dict[str, float] = {}
     if mode == "archive":
         out = {"frame_mae_worst": 0.0, "far8_pct_worst": 0.0}
@@ -76,9 +66,9 @@ def numbers(mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, devi
         lr = data["pool"][clip["index"] % len(data["pool"])][None].to(device)
         keep = {w * chunk + i for w, host in clip["windows"].items()
                 for i in range(host.shape[1])}
-        want = ref.run_clip(params, lr, nrb, quant, tail, keep=keep)
+        want = arch.run_clip(params, cfg, lr, hooks, keep=keep)
         if control:
-            served = ref.run_clip(params, lr, nrb, c_quant, c_tail, keep=keep)
+            served = arch.run_clip(params, cfg, lr, c_hooks, keep=keep)
         else:
             served = ((t, clip["windows"][t // chunk][:, t % chunk].to(device))
                       for t in sorted(keep))
@@ -95,9 +85,9 @@ def numbers(mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, devi
     streams = data["streams"]
     for k, s in enumerate(streams):
         first = s["frames"][None, :tr["warm_frames"]].to(device)
-        want = ref.run_clip(params, first, nrb, quant, tail)
+        want = arch.run_clip(params, cfg, first, hooks)
         if control:
-            served = ref.run_clip(params, first, nrb, c_quant, c_tail)
+            served = arch.run_clip(params, cfg, first, c_hooks)
         else:
             served = enumerate(x.to(device) for x in warm[k]["served"])
         for (_, w_u8), (_, s_u8) in zip(want, served):
@@ -106,16 +96,16 @@ def numbers(mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, devi
         out["step_mae_worst"] = math.inf
     for (k, j), rec in sorted(run["kept"].items()):
         frames = streams[k]["frames"]
-        lr = ref.dequant(frames[j][None].to(device))
-        prev_lr = ref.dequant(frames[j - 1][None].to(device))
-        carry = ref.carry_to_frame(rec["before"])
-        want = ref.to_u8(ref.frame(params, lr, carry, prev_lr, nrb, quant, tail))
+        lr = dequant(frames[j][None].to(device))
+        prev_lr = dequant(frames[j - 1][None].to(device))
+        carry = arch.carry_to_frame(rec["before"])
+        want = to_u8(arch.frame(params, cfg, lr, carry, prev_lr, hooks))
         if control:
-            served = ref.to_u8(ref.frame(params, lr, carry, prev_lr, nrb, c_quant, c_tail))
+            served = to_u8(arch.frame(params, cfg, lr, carry, prev_lr, c_hooks))
             handoff = 0.0
         else:
             served = rec["served"].to(device)
-            left = ref.to_u8(ref.carry_to_frame(rec["after"]))
+            left = to_u8(arch.carry_to_frame(rec["after"]))
             handoff = gap(left, served)[0]
         mae, far = gap(served, want)
         out["step_mae_worst"] = max(out["step_mae_worst"], mae)
@@ -124,8 +114,8 @@ def numbers(mode: str, cfg: dict, tr: dict, params, calib, data, run, warm, devi
     return out
 
 
-def run(mode: str, cfg: dict, tr: dict, lim: dict, params, calib, data, run_, warm,
+def run(arch, mode: str, cfg: dict, tr: dict, lim: dict, params, calib, data, run_, warm,
         device) -> list:
     """The numbers compared, each with its limit."""
-    got = numbers(mode, cfg, tr, params, calib, data, run_, warm, device)
+    got = numbers(arch, mode, cfg, tr, params, calib, data, run_, warm, device)
     return [{"name": k, "value": v, "limit": lim[k]["limit"]} for k, v in got.items()]

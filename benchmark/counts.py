@@ -1,7 +1,8 @@
 """The yardstick's arithmetic: the peaks of one NVIDIA H100 SXM (data
 sheet, dense, at its 700 W limit), and the operations and bytes each hand
-kernel and each frame of the generator need, computed from shapes (and,
-for the data-dependent warp, from its inputs).
+kernel needs, computed from shapes (and, for the data-dependent warp, from
+its inputs).  A frame's model operations are each architecture's own
+(``benchmark/architectures/<name>/counts.py``).
 
 A kernel's least time is the larger of its bytes over the HBM bandwidth
 and its operations over the peak of the unit it runs on; each input byte
@@ -76,11 +77,12 @@ def warp_s2d_least_s(prev_lr: torch.Tensor) -> float:
     return least_s(*warp_s2d_work(prev_lr), PEAK_F32_FLOPS)
 
 
-def int8_layers(h: int, w: int, num_resblock: int = 16) -> List[tuple]:
-    """The int8 tail's layers a frame at LR (h, w): (transposed, (B, H, W,
-    Cin, Cout) of the input, residual, launches a frame)."""
-    return [(False, (1, h, w, 64, 64), False, num_resblock),
-            (False, (1, h, w, 64, 64), True, num_resblock),
+def int8_layers(h: int, w: int, blocks: int = 16) -> List[tuple]:
+    """The int8 kernels' layers a frame at LR (h, w), ``blocks`` residual
+    blocks at LR: (transposed, (B, H, W, Cin, Cout) of the input,
+    residual, launches a frame)."""
+    return [(False, (1, h, w, 64, 64), False, blocks),
+            (False, (1, h, w, 64, 64), True, blocks),
             (True, (1, h, w, 64, 64), False, 1),
             (False, (1, 2 * h, 2 * w, 64, 64), False, 1),
             (False, (1, 2 * h, 2 * w, 64, 64), False, 1),
@@ -104,46 +106,12 @@ def int8_layer_work(transposed: bool, shape: tuple, residual: bool,
 
 
 def int8_least_s_per_frame(h: int, w: int, transposed: bool,
-                           num_resblock: int = 16) -> Tuple[float, int]:
+                           blocks: int = 16) -> Tuple[float, int]:
     """(least seconds a frame, launches a frame) of the int8 layers that
     are (``transposed``) 2x transposed convs, or the 3x3 convs."""
     total, launches = 0.0, 0
-    for tr, shape, residual, n in int8_layers(h, w, num_resblock):
+    for tr, shape, residual, n in int8_layers(h, w, blocks):
         if tr == transposed:
             total += n * least_s(*int8_layer_work(tr, shape, residual), PEAK_INT8_OPS)
             launches += n
     return total, launches
-
-
-def generator_macs_per_frame(h: int, w: int, num_resblock: int = 16,
-                             out_channels: int = 3) -> int:
-    """Multiply-accumulates of one generator frame at LR (h, w), the
-    transposed convs counted at input-pixel granularity."""
-    px = h * w
-    macs = 9 * 51 * 64 * px
-    macs += num_resblock * 2 * 9 * 64 * 64 * px
-    macs += 9 * 64 * 64 * px
-    macs += 2 * 9 * 64 * 64 * (4 * px)
-    macs += 9 * (64 * 128 + 128 * 128) * (4 * px)
-    macs += 9 * 128 * 128 * (4 * px)
-    macs += 9 * 128 * 64 * (16 * px)
-    macs += 9 * 64 * out_channels * (16 * px)
-    return macs
-
-
-def int8_tail_macs_per_frame(h: int, w: int, num_resblock: int = 16) -> int:
-    """Multiply-accumulates of the int8 tail: the generator without
-    ``conv_in`` and ``conv_out``."""
-    return (generator_macs_per_frame(h, w, num_resblock)
-            - 9 * 51 * 64 * h * w - 9 * 64 * 3 * 16 * h * w)
-
-
-def frame_peak_s(h: int, w: int, num_resblock: int, int8_tail: bool) -> float:
-    """A frame's model operations at the peak of the precision each runs
-    in: all of it in bf16, or the int8 tail at the int8 peak and the rest
-    (``conv_in``, ``conv_out``) in bf16."""
-    macs = generator_macs_per_frame(h, w, num_resblock)
-    if not int8_tail:
-        return 2.0 * macs / PEAK_BF16_FLOPS
-    tail = int8_tail_macs_per_frame(h, w, num_resblock)
-    return 2.0 * (macs - tail) / PEAK_BF16_FLOPS + 2.0 * tail / PEAK_INT8_OPS

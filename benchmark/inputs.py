@@ -1,5 +1,6 @@
 """What the benchmark makes from ``--seed`` and hands to both the program
-and the reference: the generator's float32 weights and the LR video.
+and the reference: the generator's float32 weights (drawn here, in the
+shapes its architecture lists) and the LR video.
 
 Everything is drawn on the device with a ``torch.Generator`` in a few
 large calls.  Each stream of draws has a seed of its own, derived from
@@ -26,33 +27,12 @@ def generator(device, seed: int, *tag) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(sub_seed(seed, *tag))
 
 
-def param_shapes(num_resblock: int = 16) -> List[Tuple[str, tuple, int]]:
-    """(name, shape, input channels) of every generator tensor, by the
-    served generator's ``state_dict`` names.  Convs are (out, in, 3, 3);
-    the 2x transposed convs (in, out, 3, 3)."""
-    out = [("conv_in.weight", (64, 51, 3, 3), 51), ("conv_in.bias", (64,), 51)]
-    for i in range(num_resblock):
-        out += [(f"resblock_{i}.Conv_0.weight", (64, 64, 3, 3), 64),
-                (f"resblock_{i}.Conv_0.bias", (64,), 64),
-                (f"resblock_{i}.Conv_1.weight", (64, 64, 3, 3), 64)]
-    out += [("up1.weight", (64, 64, 3, 3), 64), ("up1.bias", (64,), 64),
-            ("trunk_rb1.Conv_0.weight", (64, 64, 3, 3), 64), ("trunk_rb1.Conv_0.bias", (64,), 64),
-            ("trunk_rb1.Conv_1.weight", (64, 64, 3, 3), 64),
-            ("trunk_rb2.Conv_0.weight", (128, 64, 3, 3), 64),
-            ("trunk_rb2.Conv_0.bias", (128,), 64),
-            ("trunk_rb2.Conv_1.weight", (128, 128, 3, 3), 128),
-            ("up2.weight", (128, 128, 3, 3), 128), ("up2.bias", (128,), 128),
-            ("conv_hr.weight", (64, 128, 3, 3), 128), ("conv_hr.bias", (64,), 128),
-            ("conv_out.weight", (3, 64, 3, 3), 64), ("conv_out.bias", (3,), 64)]
-    return out
-
-
-def make_params(seed: int, num_resblock: int, weight_gain: float,
-                device) -> Dict[str, torch.Tensor]:
-    """float32 weights: each tensor uniform in ``(-b, b)`` with ``b = 1 /
-    sqrt(9 * C_in)`` (PyTorch's default conv init), the conv kernels (not
-    the biases) times ``weight_gain``.  One draw for all of them."""
-    shapes = param_shapes(num_resblock)
+def uniform_params(seed: int, shapes: List[Tuple[str, tuple, int]], weight_gain: float,
+                   device) -> Dict[str, torch.Tensor]:
+    """float32 weights of the (name, shape, input channels) ``shapes``, in
+    their order: each tensor uniform in ``(-b, b)`` with ``b = 1 /
+    sqrt(9 * C_in)`` (PyTorch's default conv init), the tensors whose name
+    ends in ``weight`` times ``weight_gain``.  One draw for all of them."""
     total = sum(torch.Size(s).numel() for _, s, _ in shapes)
     u = torch.rand(total, generator=generator(device, seed, "weights"), device=device)
     u = u * 2.0 - 1.0

@@ -1,7 +1,7 @@
 """The readings that a cell's limits are set from: the numbers of the
 check of ``correct`` on many seeds, from sound runs of the program and from
-the control put in its place (benchmark/reference/controls.py), in one
-process on the card.  Each seed is a whole run of the cell (set-up, a
+the control put in its place (the architecture's ``hooks(...,
+control=True)``), in one process on the card.  Each seed is a whole run of the cell (set-up, a
 window at the cell's own load, the check); the control reads the same
 run's inputs and the program's carries.
 

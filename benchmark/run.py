@@ -1,4 +1,4 @@
-"""The benchmark of ``tecogan_tpu_torch`` on NVIDIA GPUs.
+"""The benchmark of the PyTorch port on NVIDIA GPUs.
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -8,7 +8,8 @@ weights and traffic made on the card from ``--seed``, the program built
 run there, loaded after), the cell's shapes warmed up, a window of
 ``--seconds`` measured (``--trace 1``: a traced window, its per-layer
 metrics), then what the window served checked against the plain
-reference of ``benchmark/reference/``.  The numbers compared are printed,
+reference of the configuration's architecture
+(``benchmark/architectures/<name>/``).  The numbers compared are printed,
 each beside its limit, as the last lines of standard error; the last line
 of standard output is the result's JSON.  Exits non-zero, printing no
 result, without enough GPUs, or when JAX or the JAX package was loaded.
@@ -25,6 +26,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from contextlib import nullcontext  # noqa: E402
+from pathlib import Path  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tecogan_tpu")
@@ -55,30 +57,42 @@ def forbidden_modules() -> list:
     return sorted(m for m in list(sys.modules) if m.split(".")[0] in FORBIDDEN)
 
 
+def calibration(cfg: dict, tr: dict, seed: int, device):
+    """The seeded calibration clip of ``calibration_frames`` frames at the
+    traffic's size, or None where the configuration asks for none."""
+    from . import inputs
+
+    if not cfg["calibration_frames"]:
+        return None
+    return inputs.make_clip(seed, ("calibration",), cfg["calibration_frames"], tr["height"],
+                            tr["width"], tr["max_level"], device)
+
+
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, device,
              config: dict = None, traffic: dict = None, limits: dict = None,
-             t_start: float = None, control: bool = False) -> tuple:
+             t_start: float = None, control: bool = False, root: Path = None) -> tuple:
     """One run.  Returns (result dict, the check's lines).  ``control``
     also reads the control's numbers (``result["control"]``), which the
-    benchmark's own runs never do."""
+    benchmark's own runs never do.  What the cell names is found under
+    the checkout ``root`` (this one's by default)."""
     import torch
 
-    from . import check, drive, inputs, program, spec
+    from . import check, drive, spec
     from . import trace as tracing
-    from .reference.tecogan import dequant
+    from .reference.frames import dequant
 
-    cfg = config or spec.config(bench, cell["config"])
-    tr = traffic or spec.traffic(cell["traffic"])
-    lim = limits or spec.limits(cell["name"])
+    root = spec.ROOT if root is None else Path(root)
+    here = root / "benchmark"
+    cfg = config or spec.config(bench, cell["config"], root)
+    tr = traffic or spec.traffic(cell["traffic"], here)
+    lim = limits or spec.limits(cell["name"], here)
+    arch = spec.architecture(cfg, here)
     device = torch.device(device)
     H, W = tr["height"], tr["width"]
 
-    params = inputs.make_params(seed, cfg["num_resblock"], cfg["weight_gain"], device)
-    calib = None
-    if cfg["int8_tail"]:
-        calib = inputs.make_clip(seed, ("calibration",), cfg["calibration_frames"], H, W,
-                                 tr["max_level"], device)
-    system = program.System(cfg, params, device, (1, H, W, 3), calib)
+    params = arch.make_params(seed, cfg, device)
+    calib = calibration(cfg, tr, seed, device)
+    system = arch.System(cfg, params, device, (1, H, W, 3), calib)
     window_s = min(seconds, tr["trace_seconds"]) if traced else seconds
     if tr["mode"] == "archive":
         data = drive.archive_inputs(tr, seed, device)
@@ -115,11 +129,11 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
     if tr["mode"] == "archive":
         clip = data["pool"][0]
         lr_samples = [dequant(clip[t][None].to(device)) for t in range(4)]
-    ctx = SimpleNamespace(mode=tr["mode"], config=cfg, traffic=tr, setup_s=setup_s,
+    ctx = SimpleNamespace(mode=tr["mode"], config=cfg, arch=arch, traffic=tr, setup_s=setup_s,
                           run=run, trace=reduced, lr_samples=lr_samples)
     metrics = {}
     for m in spec.metrics(bench, cell["name"], traced):
-        value = spec.reader(m["name"])(ctx)
+        value = spec.reader(m["name"], here)(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     del ctx, lr_samples
@@ -133,7 +147,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
     del system
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = check.run(tr["mode"], cfg, tr, lim, params, calib, data, run, warm, device)
+    checks = check.run(arch, tr["mode"], cfg, tr, lim, params, calib, data, run, warm, device)
     correct = bool(checks) and all(c["value"] <= c["limit"] for c in checks)
     dev_rec = {"platform": "gpu" if device.type == "cuda" else device.type,
                "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -147,8 +161,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
         result["breakdown"] = reduced["breakdown"]
     result["checks"] = {c["name"]: {"value": c["value"], "limit": c["limit"]} for c in checks}
     if control:
-        result["control"] = check.numbers(tr["mode"], cfg, tr, params, calib, data, run, warm,
-                                          device, control=True)
+        result["control"] = check.numbers(arch, tr["mode"], cfg, tr, params, calib, data, run,
+                                          warm, device, control=True)
     lines = [f"check {c['name']}: {c['value']!r} (limit {c['limit']!r})" for c in checks]
     lines.append(f"correct: {correct}")
     return result, lines

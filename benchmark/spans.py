@@ -1,10 +1,10 @@
 """The program's own spans in a traced run, which ``trace.py``'s reduction
 does not read yet.
 
-The port marks its serving path with ``teco.*`` spans
-(``tecogan_tpu_torch/utils/spans.py``): profiler ops on the host thread
-that enters them, with no copy on the device's timeline, so ``trace.py``
-counts none of them as device activity.  :func:`program` reduces them:
+The port marks its serving path with ``teco.*`` spans (its
+``utils/spans.py``): profiler ops on the host thread that enters them,
+with no copy on the device's timeline, so ``trace.py`` counts none of
+them as device activity.  :func:`program` reduces them:
 
 * ``spans``: for each span name, ``count`` (instances that start in the
   window, on the serving thread), ``host_s`` (their host time, clipped to

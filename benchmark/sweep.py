@@ -29,7 +29,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import drive, inputs, program, run, spec
+    from . import drive, run, spec
 
     run.steady_allocator()
 
@@ -39,11 +39,13 @@ def main(argv=None) -> int:
     bench = spec.load()
     cell = spec.workload(bench, args.workload)
     cfg = spec.config(bench, cell["config"])
+    arch = spec.architecture(cfg)
     dev = torch.device("cuda", 0)
-    params = inputs.make_params(args.seed, cfg["num_resblock"], cfg["weight_gain"], dev)
+    params = arch.make_params(args.seed, cfg, dev)
+    calib = run.calibration(cfg, spec.traffic(cell["traffic"]), args.seed, dev)
     for n in [int(s) for s in args.streams.split(",")]:
         tr = dict(spec.traffic(cell["traffic"]), streams=n)
-        system = program.System(cfg, params, dev, (1, tr["height"], tr["width"], 3))
+        system = arch.System(cfg, params, dev, (1, tr["height"], tr["width"], 3), calib)
         data = drive.live_inputs(tr, args.seed, args.seconds, dev)
         warm = drive.live_warm(system, tr, data)
         run = drive.live(system, tr, data, warm, args.seconds, drive.Spans(False))

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from benchmark import counts
+from benchmark.architectures.tecogan_df import counts as df
 from tecogan_tpu_torch.utils import flops
 
 
@@ -13,8 +14,8 @@ from tecogan_tpu_torch.utils import flops
 @pytest.mark.parametrize("nrb", [16, 2])
 def test_frame_counts_match_the_ports(hw, nrb):
     h, w = hw
-    assert counts.generator_macs_per_frame(h, w, nrb) == flops.generator_macs_per_frame(h, w, nrb)
-    assert counts.int8_tail_macs_per_frame(h, w, nrb) == flops.int8_tail_macs_per_frame(h, w, nrb)
+    assert df.generator_macs_per_frame(h, w, nrb) == flops.generator_macs_per_frame(h, w, nrb)
+    assert df.int8_tail_macs_per_frame(h, w, nrb) == flops.int8_tail_macs_per_frame(h, w, nrb)
 
 
 def test_peaks_match_the_ports():
@@ -53,9 +54,9 @@ def test_warp_bytes_follow_the_inputs():
 
 def test_mfu_counts_split_the_int8_tail():
     h, w = 270, 480
-    bf16 = counts.frame_peak_s(h, w, 16, False)
+    bf16 = df.frame_peak_s(h, w, 16, False)
     assert bf16 == pytest.approx(flops.generator_flops_per_frame(h, w) / flops.H100_PEAK_BF16_FLOPS)
     tail = 2.0 * flops.int8_tail_macs_per_frame(h, w)
-    q = counts.frame_peak_s(h, w, 16, True)
+    q = df.frame_peak_s(h, w, 16, True)
     assert q == pytest.approx((flops.generator_flops_per_frame(h, w) - tail) / 989e12
                               + tail / 1979e12)

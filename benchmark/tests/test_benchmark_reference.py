@@ -1,4 +1,5 @@
-"""The plain reference of benchmark/reference/ held to the port on the
+"""The plain reference of the ``tecogan_df`` architecture
+(benchmark/architectures/tecogan_df/reference/) held to the port on the
 CPU at a small size, and its controls shown to fail the check's limits.
 
 The port runs its kernels' plain versions on the CPU.  The generator
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 from benchmark import check, inputs
-from benchmark.reference import controls, int8, tecogan as ref
+from benchmark.architectures import tecogan_df
+from benchmark.architectures.tecogan_df.reference import controls, int8, tecogan as ref
+from benchmark.reference.frames import dequant, to_u8
 
 LIMITS = Path(__file__).resolve().parents[1] / "limits"
 H, W, T = 16, 24, 6
@@ -38,7 +41,7 @@ def _served_stream(seed, nrb=16, precision="bf16"):
     from tecogan_tpu_torch.ops.image import transfer_to_uint8
 
     cfg, inference, model = _port(nrb, precision)
-    params = inputs.make_params(seed, nrb, GAIN, "cpu")
+    params = inputs.uniform_params(seed, tecogan_df.param_shapes(nrb), GAIN, "cpu")
     model.load_state_dict(params)
     clip = inputs.make_clip(seed, ("test",), T, H, W, 76, "cpu")
     init, step = inference.build_stream_inference(cfg)
@@ -80,11 +83,11 @@ def test_teacher_forced_step_and_handoff():
     params, clip, served, carries = _served_stream(7)
     with torch.no_grad():
         for t in range(1, T):
-            want = ref.to_u8(ref.frame(params, ref.dequant(clip[t][None]),
-                                       ref.carry_to_frame(carries[t - 1]),
-                                       ref.dequant(clip[t - 1][None]), 16))
+            want = to_u8(ref.frame(params, dequant(clip[t][None]),
+                                   ref.carry_to_frame(carries[t - 1]),
+                                   dequant(clip[t - 1][None]), 16))
             assert check.gap(served[t], want)[0] <= _limit("bf16-live", "step_mae_worst")
-            left = ref.to_u8(ref.carry_to_frame(carries[t]))
+            left = to_u8(ref.carry_to_frame(carries[t]))
             assert torch.equal(left, served[t])
 
 
@@ -97,10 +100,10 @@ def test_fp8_control_fails_the_limits(seed):
         for t, ctl in ref.run_clip(params, clip[None], 16, quant=controls.fp8_quant):
             worst_free = max(worst_free, check.gap(ctl, frames[t])[0])
         for t in range(1, T):
-            args = (ref.dequant(clip[t][None]), ref.carry_to_frame(carries[t - 1]),
-                    ref.dequant(clip[t - 1][None]), 16)
-            want = ref.to_u8(ref.frame(params, *args))
-            ctl = ref.to_u8(ref.frame(params, *args, quant=controls.fp8_quant))
+            args = (dequant(clip[t][None]), ref.carry_to_frame(carries[t - 1]),
+                    dequant(clip[t - 1][None]), 16)
+            want = to_u8(ref.frame(params, *args))
+            ctl = to_u8(ref.frame(params, *args, quant=controls.fp8_quant))
             worst_step = max(worst_step, check.gap(ctl, want)[0])
     assert worst_free > _limit("bf16-archive", "frame_mae_worst")
     assert worst_step > _limit("bf16-live", "step_mae_worst")
@@ -108,7 +111,7 @@ def test_fp8_control_fails_the_limits(seed):
 
 def _int8_served(seed, precision):
     cfg, inference, model = _port(16, precision)
-    params = inputs.make_params(seed, 16, GAIN, "cpu")
+    params = inputs.uniform_params(seed, tecogan_df.param_shapes(16), GAIN, "cpu")
     model.load_state_dict(params)
     calib = inputs.make_clip(seed, ("calibration",), 8, H, W, 76, "cpu")
     clip = inputs.make_clip(seed, ("test",), T, H, W, 76, "cpu")
@@ -136,10 +139,10 @@ def test_int8_reference_scales_match_the_ports_in_float32():
     from tecogan_tpu_torch.engine.quant import calibrate_clip, quantize_tail
 
     cfg, inference, model = _port(2, "fp32")
-    params = inputs.make_params(1, 2, GAIN, "cpu")
+    params = inputs.uniform_params(1, tecogan_df.param_shapes(2), GAIN, "cpu")
     model.load_state_dict(params)
     calib = inputs.make_clip(1, ("calibration",), 4, H, W, 76, "cpu")
-    theirs = calibrate_clip(model, ref.dequant(calib[None]), 1)
+    theirs = calibrate_clip(model, dequant(calib[None]), 1)
     mine = int8.calibrate(params, calib[None], 1, 2)
     assert set(theirs) == set(mine)
     for k in mine:

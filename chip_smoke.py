@@ -186,6 +186,23 @@ paper's config.  Phases:
    13b and phases 15-17's paths).  ``python -m
    tecogan_tpu_torch.tools.bf16_layers`` runs the nine shapes alone.
 
+19. TecoGAN as published (``models.PublishedTecoGAN``): its two kernels,
+   ``flow_warp_s2d`` (bit-equal to its plain version: flows within and
+   far past the frame, at three shapes) and ``conv_out_bicubic_s2d``
+   (against its plain version in f32 on the same bf16 features and
+   bf16-rounded weights, within the f32 sums' reordering, at three
+   shapes), the carry float32, each at the main shape one
+   launch in a CUDA graph of 50 against its byte bound and its plain
+   version's time; then the full-width published route (16 resblocks,
+   bf16) on a (1, 8, 270, 480, 3) clip: its hand kernels' launches a
+   frame, counted by kernel name in a device trace of a clip whose FNet,
+   resblocks and ``up`` layers replay as CUDA graphs (1 / 1 / 32 / 2
+   after frame 0; FNet on cuDNN), the wrappers' own counts (only the
+   launches issued outside a graph) and the graph replays beside them,
+   fps, the chunked loop (u8, windows of 3) and the stream step
+   bit-equal to the clip, and dwight-foster's clip launching neither new
+   kernel.
+
 Phases 9-11, 13a, c-e, 15's train steps (DP and TP) and 17's train programs run no hand kernel: training runs cuDNN convs and
 ``F.grid_sample``, as the JAX train step runs XLA convs and gathers.
 In the kernels' JSON record the int8 and bf16 conv kernels' times are a
@@ -2071,6 +2088,7 @@ def export_phase(dev, smi) -> dict:
     import tempfile
 
     from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine import published
     from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
                                                     build_clip_inference,
                                                     build_quantized_clip_inference,
@@ -2681,6 +2699,227 @@ def bf16_conv_phase(dev, smi) -> list:
     return [recs[False], recs[True]]
 
 
+# phase 19: TecoGAN as published.  (B, H, W) of the LR carry and the flow's
+# range in LR pixels (far past the frame: every sample clamps at an edge)
+FLOW_SHAPES = [((1, 270, 480), 6.0), ((2, 135, 240), 3.0), ((1, 37, 53), 40.0)]
+BICUBIC_SHAPES = [(1, 1080, 1920, 64), (2, 540, 960, 64), (1, 148, 212, 64)]
+# the skip layer's bar: its f32 sums of 9 * 64 products and the skip's 16
+# taps in another order than cuDNN's (TF32 off), each order within 590 *
+# 2**-24 of the sum of the terms' magnitudes, so a gap of at most 2**-13 of
+# that sum (the plain version on the magnitudes), plus 1e-6
+BICUBIC_RTOL, BICUBIC_ATOL = 2.0 ** -13, 1e-6
+PUBLISHED_T, PUBLISHED_CHUNK = 8, 3
+
+
+def _published_weights(model, g: torch.Generator) -> None:
+    """Weights as the benchmark draws them for TecoGAN as published: each
+    conv kernel uniform in (-b, b), b = 1 / sqrt(9 * C_in), times 2.25 in
+    FNet and 1.3 in the generator (its configuration's gains); the biases
+    zero."""
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if t.dim() != 4:
+                t.zero_()
+                continue
+            fan = 9 * t.shape[0 if name.endswith(("up1.weight", "up2.weight")) else 1]
+            gain = 2.25 if name.startswith("fnet.") else 1.3
+            t.copy_((torch.rand(t.shape, generator=g) * 2 - 1) * fan ** -0.5 * gain)
+    model.eval()
+
+
+def _published_kernel(name: str):
+    """The published route's hand kernel that a device trace's kernel
+    ``name`` is (by the sources' ``__global__`` names), or None."""
+    if "dense_flow_warp_kernel" in name:
+        return "flow_warp_s2d"
+    if "conv_out_bicubic_kernel" in name:
+        return "conv_out_bicubic_s2d"
+    if "bf16_conv_kernel" in name:
+        up = re.search(r"bf16_conv_kernel\s*<[^>]*\btrue\b|bf16_conv_kernelI.*Lb1E", name)
+        return "bf16_up2x" if up else "bf16_conv3x3"
+    return None
+
+
+def _traced_hand_launches(fn) -> tuple:
+    """``fn()`` under the profiler: ({hand kernel: launches} counted by
+    kernel name in the device trace, CUDA graphs' kernels included, and
+    the kernel names matched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"flow_warp_s2d": 0, "conv_out_bicubic_s2d": 0, "bf16_conv3x3": 0, "bf16_up2x": 0}
+    names = set()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = _published_kernel(ev.name())
+        if kind is not None:
+            counts[kind] += 1
+            names.add(ev.name())
+    return counts, sorted(names)
+
+
+def published_phase(dev, smi) -> list:
+    """Phase 19 (see the module's docstring); returns the two kernels'
+    records."""
+    from tecogan_tpu_torch.config import TecoConfig
+    from tecogan_tpu_torch.engine import published
+    from tecogan_tpu_torch.engine.inference import (build_chunked_inference,
+                                                    build_clip_inference,
+                                                    build_stream_inference)
+    from tecogan_tpu_torch.engine.state import init_generator, published_model_defs
+    from tecogan_tpu_torch.ops.image import transfer_to_uint8
+    from tecogan_tpu_torch.ops.kernels import bf16_conv as bmod
+    from tecogan_tpu_torch.ops.kernels import conv_out_bicubic_s2d as cbmod
+    from tecogan_tpu_torch.ops.kernels import flow_warp_s2d as fwmod
+    from tecogan_tpu_torch.utils.timing import graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    warp = {"name": "flow_warp_s2d", "route": "cuda",
+            "source": "tecogan_tpu_torch/csrc/flow_warp_s2d.cu",
+            "replaces": "TecoGAN's upscale_four + dense_image_warp + space_to_depth",
+            "max_abs_err": 0.0}
+    for (B, H, W), reach in FLOW_SHAPES:
+        carry = torch.rand((B, H, W, 48), generator=gen, device=dev)
+        flow = (torch.rand((B, H, W, 2), generator=gen, device=dev) * 2 - 1) * reach
+        got = fwmod.flow_warp_s2d_cuda(flow, carry)
+        ref = fwmod.flow_warp_s2d_reference(flow, carry).bfloat16()
+        err = (got.float() - ref.float()).abs().max().item()
+        warp["max_abs_err"] = max(warp["max_abs_err"], err)
+        print(f"[19] flow_warp_s2d {(B, H, W)} flow +-{reach}: max gap to plain {err:.3e}",
+              flush=True)
+        require(err == 0.0, f"[19] flow_warp_s2d {(B, H, W)} differs from plain by {err}")
+    (B, H, W), reach = FLOW_SHAPES[0]
+    carry = torch.rand((B, H, W, 48), generator=gen, device=dev)
+    flow = (torch.rand((B, H, W, 2), generator=gen, device=dev) * 2 - 1) * reach
+    warp["bytes"] = float(B * H * W * (2 * 4 + 48 * 4 + 48 * 2))
+    warp["bound_ms"] = warp["bytes"] / HBM_BYTES_PER_S * 1e3
+    warp["bound_by"] = "bytes"
+    warp["ms"] = graph_ms(lambda: fwmod.flow_warp_s2d_cuda(flow, carry), 50)
+    warp["plain_ms"] = graph_ms(lambda: fwmod.flow_warp_s2d_reference(flow, carry), 5)
+    print(f"[19] flow_warp_s2d {(B, H, W)}: kernel {warp['ms']:.4f} ms, bound "
+          f"{warp['bound_ms']:.4f} ms ({warp['bound_ms'] / warp['ms']:.1%}), plain "
+          f"{warp['plain_ms']:.4f} ms | {smi}", flush=True)
+
+    conv = {"name": "conv_out_bicubic_s2d", "route": "cuda",
+            "source": "tecogan_tpu_torch/csrc/conv_out_bicubic_s2d.cu",
+            "replaces": "TecoGAN's conv_out + bicubic_four + space_to_depth",
+            "max_abs_err": 0.0}
+    weight = torch.randn((3, 3, 64, 3), generator=gen, device=dev) * 0.05
+    bias = torch.randn((3,), generator=gen, device=dev) * 0.1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 sums
+    for shape in BICUBIC_SHAPES:
+        B, H4, W4, _ = shape
+        feat = torch.rand(shape, generator=gen, device=dev).bfloat16()
+        lr = torch.rand((B, H4 // 4, W4 // 4, 3), generator=gen, device=dev)
+        got = cbmod.conv_out_bicubic_s2d_cuda(feat, weight, bias, lr)
+        ref = cbmod.conv_out_bicubic_s2d_reference(feat, weight, bias, lr)
+        size = cbmod.conv_out_bicubic_s2d_reference(feat.abs(), weight.abs(), bias.abs(), lr)
+        gap = (got - ref).abs()
+        err = gap.max().item()
+        over = (gap > size * BICUBIC_RTOL + BICUBIC_ATOL).sum().item()
+        conv["max_abs_err"] = max(conv["max_abs_err"], err)
+        print(f"[19] conv_out_bicubic_s2d {shape}: max gap to plain {err:.3e}, "
+              f"{over} values past the bar", flush=True)
+        require(over == 0, f"[19] conv_out_bicubic_s2d {shape}: {over} values past the bar")
+    torch.backends.cudnn.allow_tf32 = tf32
+    B, H4, W4, _ = BICUBIC_SHAPES[0]
+    feat = torch.rand(BICUBIC_SHAPES[0], generator=gen, device=dev).bfloat16()
+    lr = torch.rand((B, H4 // 4, W4 // 4, 3), generator=gen, device=dev)
+    conv["bytes"] = float(feat.numel() * 2 + lr.numel() * 4 + (9 * 64 * 3 + 3) * 4
+                          + B * H4 * W4 // 16 * 48 * 4)
+    conv["bound_ms"] = conv["bytes"] / HBM_BYTES_PER_S * 1e3
+    conv["bound_by"] = "bytes"
+    conv["ms"] = graph_ms(lambda: cbmod.conv_out_bicubic_s2d_cuda(feat, weight, bias, lr), 50)
+    conv["plain_ms"] = graph_ms(
+        lambda: cbmod.conv_out_bicubic_s2d_reference(feat, weight, bias, lr), 5)
+    print(f"[19] conv_out_bicubic_s2d {BICUBIC_SHAPES[0]}: kernel {conv['ms']:.4f} ms, bound "
+          f"{conv['bound_ms']:.4f} ms ({conv['bound_ms'] / conv['ms']:.1%}), plain "
+          f"{conv['plain_ms']:.4f} ms | {smi}", flush=True)
+
+    # the full-width published route
+    cfg = TecoConfig(num_resblock=16, precision="bf16")
+    model = published_model_defs(cfg, device=dev)
+    g = torch.Generator().manual_seed(19)
+    _published_weights(model, g)
+    clip = (torch.rand((1, PUBLISHED_T, 270, 480, 3), generator=g) * 76).to(torch.uint8)
+    torch.backends.cudnn.deterministic = True  # FNet's convs: the same sums every call
+    counts = {}
+
+    def reset():
+        fwmod.launch_count = cbmod.launch_count = 0
+        bmod.conv3x3_launch_count = bmod.up2x_launch_count = 0
+
+    def read():
+        return {"flow_warp_s2d": fwmod.launch_count,
+                "conv_out_bicubic_s2d": cbmod.launch_count,
+                "bf16_conv3x3": bmod.conv3x3_launch_count, "bf16_up2x": bmod.up2x_launch_count}
+
+    infer = build_clip_inference(cfg)
+    out = infer(model, clip.to(dev))  # eager, then each graph captured
+    torch.cuda.synchronize()
+    reset()
+    published.replay_count.clear()
+    t0 = time.perf_counter()
+    out = infer(model, clip.to(dev))
+    torch.cuda.synchronize()
+    fps = PUBLISHED_T / (time.perf_counter() - t0)
+    counts["clip, wrappers"] = read()
+    counts["clip, graph replays"] = dict(published.replay_count)
+    want = {"flow_warp_s2d": PUBLISHED_T - 1, "conv_out_bicubic_s2d": PUBLISHED_T,
+            "bf16_conv3x3": 0, "bf16_up2x": 0}
+    require(counts["clip, wrappers"] == want,
+            f"[19] published clip's wrappers counted {counts['clip, wrappers']}, want {want}")
+    replays = {"fnet": PUBLISHED_T - 1, "resblocks": PUBLISHED_T, "upsample": PUBLISHED_T}
+    require(counts["clip, graph replays"] == replays,
+            f"[19] published clip replayed {counts['clip, graph replays']}, want {replays}")
+    counts["clip, device trace"], names = _traced_hand_launches(lambda: infer(model, clip.to(dev)))
+    want = {"flow_warp_s2d": PUBLISHED_T - 1, "conv_out_bicubic_s2d": PUBLISHED_T,
+            "bf16_conv3x3": 32 * PUBLISHED_T, "bf16_up2x": 2 * PUBLISHED_T}
+    require(counts["clip, device trace"] == want,
+            f"[19] published clip's trace holds {counts['clip, device trace']} ({names}), "
+            f"want {want}")
+    u8 = transfer_to_uint8(out).cpu()
+    sat = ((u8 == 0) | (u8 == 255)).float().mean().item()
+    chunked = build_chunked_inference(cfg, out_u8=True)(model, clip, chunk=PUBLISHED_CHUNK)
+    require(torch.equal(chunked, u8), "[19] chunked published clip differs from the clip")
+    init_fn, step_fn = build_stream_inference(cfg)
+    state = init_fn((1, 270, 480, 3), device=dev)
+    frames = []
+    for t in range(PUBLISHED_T):
+        state, sr = step_fn(model, state, clip[:, t])
+        frames.append(sr)
+    require(torch.equal(torch.stack(frames, 1), out), "[19] published stream differs from the clip")
+    # a parameter replaced after the capture: the next call captures anew
+    # (a stale graph would serve the old weights' frames)
+    model.generator.up2.weight = torch.nn.Parameter(model.generator.up2.weight.detach() * 0.5)
+    moved = infer(model, clip.to(dev))
+    again = infer(model, clip.to(dev))
+    require(not torch.equal(moved, out) and torch.equal(again, moved),
+            "[19] the published route's graphs did not follow a replaced parameter")
+    # dwight-foster's bf16 clip launches neither of the published kernels
+    df_cfg = TecoConfig(num_resblock=16, precision="bf16", bug_parity=False, use_pallas=True)
+    df = _model_on(df_cfg, init_generator(df_cfg, torch.Generator().manual_seed(0)), dev)
+    reset()
+    build_clip_inference(df_cfg)(df, clip[:, :3].to(dev))
+    torch.cuda.synchronize()
+    counts["dwight-foster clip, 3 frames"] = read()
+    require(counts["dwight-foster clip, 3 frames"]["flow_warp_s2d"] == 0
+            and counts["dwight-foster clip, 3 frames"]["conv_out_bicubic_s2d"] == 0,
+            f"[19] dwight-foster's clip launched {counts['dwight-foster clip, 3 frames']}")
+    torch.backends.cudnn.deterministic = False
+    print(f"[19] published route, 16 resblocks, {PUBLISHED_T} frames of 270x480: {fps:.2f} fps, "
+          f"{sat:.3%} of u8 values at 0 or 255; chunked (windows of {PUBLISHED_CHUNK}, u8) "
+          f"and stream bit-equal to the clip; launches {counts} | {smi}", flush=True)
+    for rec in (warp, conv):
+        rec["launches"] = counts["clip, device trace"][rec["name"]]
+        rec["library_ms"] = None
+    return [warp, conv]
+
+
 def main(parent=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2718,8 +2957,12 @@ def main(parent=None) -> None:
     print(f"[1] image I/O modules importable: {found}", flush=True)
 
     # -- 2. build: one nvcc a source, started together
+    from tecogan_tpu_torch.ops.kernels import conv_out_bicubic_s2d as cbmod
+    from tecogan_tpu_torch.ops.kernels import flow_warp_s2d as fwmod
+
     jobs = {"conv_out_s2d": kmod.build, "warp_s2d": wmod.build, "int8_conv": qmod.build,
-            "bf16_conv": bmod.build}
+            "bf16_conv": bmod.build, "flow_warp_s2d": fwmod.build,
+            "conv_out_bicubic_s2d": cbmod.build}
     if parent is not None:  # the earlier f32 design, timed in phase 3
         jobs["conv_out_s2d (earlier tree)"] = lambda: load_source(
             pathlib.Path(parent) / "tecogan_tpu_torch" / "csrc" / "conv_out_s2d.cu")
@@ -3004,6 +3247,7 @@ def main(parent=None) -> None:
     exported = export_phase(dev, smi)
     benched = bench_phase(dev, smi)
     bf16_recs = bf16_conv_phase(dev, smi)
+    published_recs = published_phase(dev, smi)
     # the bf16 fused conv kernels' launches: the full-width bf16 clip's (phase 4)
     bf16_recs[0]["launches"], bf16_recs[1]["launches"] = launches[2], launches[3]
 
@@ -3015,6 +3259,7 @@ def main(parent=None) -> None:
         rec["launches_multi"] = {path: counts[rec["name"]] for path, counts in multi.items()}
         rec["launches_exported"] = {path: counts[rec["name"]] for path, counts in exported.items()}
         rec["launches_bench"] = {prog: counts[rec["name"]] for prog, counts in benched.items()}
+    records += [{k: rec[k] for k in keys} for rec in published_recs]  # phase 19's route only
     # the fp32 route's kernel: its launches are the fp32 clip's (phase 4);
     # phases 15-17 serve bf16 and int8
     records.insert(1, {k: conv32[k] for k in keys + ("earlier_ms",) if k in conv32})

@@ -19,6 +19,7 @@ weight, copied each call.
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 
 from ..models import Generator
 from ..ops.kernels import bf16_conv as _kernels
@@ -32,9 +33,17 @@ def tail_features_bf16(model: Generator, net: torch.Tensor) -> torch.Tensor:
 
     def conv(x, name, relu=False, residual=None):
         layer = layers[name]
-        m = layer.module
-        w = forward_kernel(m.weight, layer.transposed).contiguous()
-        fn = _kernels.bf16_up2x if layer.transposed else _kernels.bf16_conv3x3
-        return fn(x, w, m.bias, relu, residual)
+        return fused_conv(layer.module, layer.transposed, x, relu, residual)
 
     return _chain(model, net.to(torch.bfloat16).contiguous(), conv)
+
+
+def fused_conv(m: nn.Module, transposed: bool, x: torch.Tensor, relu: bool = False,
+               residual=None) -> torch.Tensor:
+    """The 3x3 layer ``m`` (a ``ConvTranspose2x`` 2x layer when
+    ``transposed``) on NHWC bf16 ``x`` as one fused op: ``bf16_up2x`` or
+    ``bf16_conv3x3``, with its bias, then ReLU if ``relu``, then ``+
+    residual``."""
+    w = forward_kernel(m.weight, transposed).contiguous()
+    fn = _kernels.bf16_up2x if transposed else _kernels.bf16_conv3x3
+    return fn(x, w, m.bias, relu, residual)

@@ -11,6 +11,13 @@ model runs its tail on the fused conv kernels (engine/bf16_tail.py).  The
 int8 (W8A8) serving mode (:func:`build_quantized_clip_inference`, and the
 chunked loop with a ``qtail``) is the fused route with the generator tail
 swapped for the quantized one (engine/quant.py).
+
+Every loop also serves TecoGAN as published: given a
+``models.PublishedTecoGAN``, it runs that model's route
+(:func:`_published_route`, engine/published.py: FNet's flow, the dense
+warp, the bicubic skip) on the s2d carry, whatever route ``cfg`` selects
+for dwight-foster's generator; each call picks the route by the model's
+class once.  The int8 tail is dwight-foster's generator's only.
 """
 
 from __future__ import annotations
@@ -21,12 +28,13 @@ import torch
 import torch.nn as nn
 
 from ..config import TecoConfig
-from ..models import Generator
+from ..models import Generator, PublishedTecoGAN
 from ..ops.image import (deprocess, start_host_copy, transfer_dequantize_f32,
                          transfer_to_uint8)
 from ..ops.space import space_to_depth
 from ..ops.warp import grid_sample, pseudo_flow_nchw
 from ..utils.spans import span
+from . import published
 from .bf16_tail import tail_features_bf16
 from .fused import fused_first_frame_s2d, fused_sr_step_s2d, s2d_to_frame
 from .quant import calibrate_clip, quantize_tail, tail_features_int8
@@ -111,6 +119,27 @@ def _route(cfg: TecoConfig) -> _Route:
                   carry_dtype=torch.float32)
 
 
+def _published_route() -> _Route:
+    """The route of TecoGAN as published (engine/published.py): the s2d
+    carry of the unclamped SR frame, float32."""
+    return _Route(first=published.first_frame, step=published.step,
+                  frames=lambda s2d: s2d_to_frame(s2d).contiguous(),
+                  carry_shape=lambda B, H, W: (B, H, W, 48), carry_dtype=torch.float32)
+
+
+def _routes(cfg: TecoConfig) -> Callable:
+    """``pick(model) -> _Route``: the published route for a
+    ``PublishedTecoGAN``, ``cfg``'s route for dwight-foster's generator."""
+    route, pub = _route(cfg), _published_route()
+    return lambda model: pub if isinstance(model, PublishedTecoGAN) else route
+
+
+def _no_published_int8(model) -> None:
+    if isinstance(model, PublishedTecoGAN):
+        raise ValueError("the int8 (W8A8) tail is dwight-foster's generator's only: "
+                         "TecoGAN as published serves in bf16 (float32 on the CPU)")
+
+
 def _require_fused(cfg: TecoConfig) -> None:
     if cfg.bug_parity or not cfg.use_pallas or cfg.warp_group != 4:
         raise ValueError(
@@ -152,12 +181,14 @@ def build_clip_inference(cfg: TecoConfig):
     ``model`` is a ``models.Generator`` (``engine.state.model_defs(cfg)``
     with loaded weights) on the clip's device; its dtype is the compute
     dtype.  lr_clip: (B, T, H, W, 3) float [0,1] or uint8;
-    sr_clip: (B, T, 4H, 4W, 3) float32.
+    sr_clip: (B, T, 4H, 4W, 3) float32.  ``model`` may also be a
+    ``models.PublishedTecoGAN``, served on its own route.
     """
-    route = _route(cfg)
+    pick = _routes(cfg)
 
     @torch.inference_mode()
     def infer(model: Generator, lr_clip: torch.Tensor) -> torch.Tensor:
+        route = pick(model)
         _, carries = _run(route, model, _dequant_in(lr_clip))
         return route.frames(carries)
 
@@ -187,12 +218,14 @@ def build_quantized_clip_inference(cfg: TecoConfig):
 
     @torch.inference_mode()
     def prepare(model: Generator, params, calib_clip, frames: int = 8):
+        _no_published_int8(model)
         dev = next(model.parameters()).device
         clip = _dequant_in(torch.as_tensor(calib_clip)[:, :frames].to(dev))
         return quantize_tail(params, calibrate_clip(model, clip, frames), device=dev)
 
     @torch.inference_mode()
     def infer(model: Generator, qtail, lr_clip: torch.Tensor) -> torch.Tensor:
+        _no_published_int8(model)
         q = _int8_route(route, qtail)
         _, carries = _run(q, model, _dequant_in(lr_clip))
         return q.frames(carries)
@@ -219,7 +252,10 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
       (``transfer_to_uint8``), so the sink or the clip receives uint8.
     * qtail: a quantized tail (``build_quantized_clip_inference``'s
       ``prepare``): the windows run the int8 route, bit-equal to its
-      one-shot clip.  Fused route only (``ValueError`` otherwise).
+      one-shot clip.  Fused route only, and dwight-foster's generator only
+      (``ValueError`` otherwise).
+    * ``model``: a ``models.Generator``, or a ``models.PublishedTecoGAN``
+      served on its own route.
 
     The copy of window i to the host overlaps window i+1's compute: it
     runs on a side stream that waits for window i, and the host hands
@@ -230,17 +266,18 @@ def build_chunked_inference(cfg: TecoConfig, out_u8: bool = False):
     frames, and to uint8), ``copy_start`` (the copy queued) and
     ``copy_wait`` (the host waiting for it); the sink runs outside them.
     """
-    route = _route(cfg)
+    pick = _routes(cfg)
 
     @torch.inference_mode()
     def infer(model: Generator, lr_clip, chunk: int = 64,
               sink: Optional[Callable] = None, qtail=None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        run_route = route
+        run_route = pick(model)
         if qtail is not None:
+            _no_published_int8(model)
             _require_fused(cfg)
-            run_route = _int8_route(route, qtail)
+            run_route = _int8_route(run_route, qtail)
         lr_clip = torch.as_tensor(lr_clip).cpu()
         if lr_clip.dtype != torch.uint8:
             lr_clip = lr_clip.float()
@@ -381,8 +418,10 @@ def build_stream_inference(cfg: TecoConfig):
     or uint8, on any device; sr_frame is (B, 4H, 4W, 3) float32.  A
     stream of frames reproduces ``build_clip_inference`` bit for bit.
     A step's spans are ``upload``, ``frame`` and ``output``, as in the
-    chunked loop.
+    chunked loop.  ``model`` may also be a ``models.PublishedTecoGAN``,
+    served on its own route (its first step needs no carry).
     """
+    pick = _routes(cfg)
     route = _route(cfg)
 
     def init_fn(lr_shape, device=None) -> StreamState:
@@ -396,6 +435,7 @@ def build_stream_inference(cfg: TecoConfig):
 
     @torch.inference_mode()
     def step_fn(model: Generator, state: StreamState, lr_frame: torch.Tensor):
+        route = pick(model)
         with span("upload"):
             lr = _dequant_in(lr_frame.to(state.prev_lr.device))
         with span("frame"):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import TecoConfig
-from ..models import Discriminator, Generator
+from ..models import Discriminator, Generator, PublishedTecoGAN
 from ..utils.convert import (discriminator_state_dict_from_jax,
                              generator_state_dict_from_jax)
 
@@ -55,6 +55,15 @@ def model_defs(cfg: TecoConfig, device=None) -> Generator:
     dev = resolve_device(device)
     return Generator(num_resblock=cfg.num_resblock, out_channels=3,
                      dtype=dtype).to(dev)
+
+
+def published_model_defs(cfg: TecoConfig, device=None) -> PublishedTecoGAN:
+    """TecoGAN as published (``models.PublishedTecoGAN``: its FNet and
+    generator, ``cfg.num_resblock`` resblocks), weights held in the compute
+    dtype from ``cfg.precision``, on ``device`` (as :func:`model_defs`).
+    The inference loops serve it on its own route."""
+    return PublishedTecoGAN(num_resblock=cfg.num_resblock,
+                            dtype=_compute_dtype(cfg)).to(resolve_device(device))
 
 
 def train_model_defs(cfg: TecoConfig, device=None) -> Tuple[Generator, Discriminator]:

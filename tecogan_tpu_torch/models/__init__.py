@@ -2,6 +2,6 @@
 NHWC outside)."""
 
 from .discriminator import Discriminator
-from .generator import Generator
+from .generator import Generator, PublishedTecoGAN
 
-__all__ = ["Discriminator", "Generator"]
+__all__ = ["Discriminator", "Generator", "PublishedTecoGAN"]

@@ -94,14 +94,15 @@ class ConvTranspose2x(nn.ConvTranspose2d):
 
 
 class ResidualBlock(nn.Module):
-    """conv(bias) - ReLU - conv(no bias).  The skip is added by the caller:
-    the generator's trunk uses the block without one."""
+    """conv(bias) - ReLU - conv(no bias; with ``bias1``, a bias, as TecoGAN
+    as published has it).  The skip is added by the caller: the
+    generator's trunk uses the block without one."""
 
     def __init__(self, in_ch: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias1: bool = False):
         super().__init__()
         self.Conv_0 = Conv(in_ch, features, bias=True, dtype=dtype)
-        self.Conv_1 = Conv(features, features, bias=False, dtype=dtype)
+        self.Conv_1 = Conv(features, features, bias=bias1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Conv_1(F.relu(self.Conv_0(x)))
